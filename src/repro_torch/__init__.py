@@ -1,0 +1,32 @@
+"""PyTorch + CUDA port of the FedCET reproduction (reference: ``src/repro``).
+
+The module layout mirrors ``src/repro/``: every file names the reference
+file it ports in its docstring. The port imports ``torch`` and never
+``jax`` or anything of the ``repro`` package; its tests hold it against
+the reference on the CPU, and ``chip_smoke.py`` at the repository root
+drives it on an NVIDIA H100.
+
+Ported so far (slice 1): FedCET federated training of ``fedlm-100m`` at
+full width, the paper's quadratic problem, and hand-written CUDA kernels
+for the FedCET local-step triad and the aggregation pair
+(``kernels/csrc/fedcet_update.cu``).
+"""
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another. With no card and no explicit request it raises — an entry
+    point never falls back to the CPU silently."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port on the CPU")
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available")
+    return device

@@ -1,0 +1,122 @@
+"""Architecture config (port of ``src/repro/configs/base.py``:
+``ArchConfig`` with ``reduced()`` and ``with_dtype``).
+
+A copy, not an import: the port imports nothing of the ``repro`` package.
+``reduced()`` gives the CPU-smoke variant of the same family (2 layers,
+d_model <= 256, small vocab), exactly as the reference computes it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    citation: str = ""
+    head_dim: Optional[int] = None   # default d_model // n_heads
+
+    # attention variants
+    qk_norm: bool = False
+    attention: str = "full"          # full | sliding | chunked
+    window: int = 4096               # sliding-window size
+    chunk: int = 8192                # chunked-local (iRoPE) chunk size
+    rope_theta: float = 1e4
+    use_rope: bool = True
+    attn_bias: bool = False
+
+    # mlp
+    activation: str = "swiglu"       # swiglu | geglu | gelu
+    mlp_bias: bool = False
+
+    # norm / embeddings
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    embed_scale: bool = False        # gemma: multiply embeddings by sqrt(d)
+
+    # moe
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_shared_expert: bool = False
+    capacity_factor: float = 1.25
+
+    # ssm (mamba2)
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+
+    # hybrid (zamba2): one SHARED attention(+MLP) block applied every k layers
+    shared_attn_every: int = 0
+
+    # modality frontends (stubs): precomputed embeddings prepended/consumed
+    modality: str = "text"           # text | vision | audio
+    n_modal_tokens: int = 0          # vision: image-patch tokens per sample
+    encoder_layers: int = 0          # audio: enc-dec encoder depth
+    encoder_len: int = 1500          # audio: encoder frames
+
+    # numerics / lowering
+    dtype: str = "float32"           # activations
+    param_dtype: str = "float32"
+    remat: bool = True
+    scan_layers: bool = True
+    attn_block_size: int = 512
+    #: the reference's Pallas attention / SSD switches; their kernels are
+    #: not ported yet, so the port's models refuse True.
+    use_pallas_attention: bool = False
+    use_pallas_ssd: bool = False
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
+        if self.n_heads and self.n_kv_heads:
+            assert self.n_heads % self.n_kv_heads == 0, (self.n_heads, self.n_kv_heads)
+
+    # ------------------------------------------------------------- variants
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant of the same family: 2 layers, d_model<=512,
+        <=4 experts, small vocab/window — runs a train step on one CPU."""
+        d = min(self.d_model, 256)
+        heads = min(self.n_heads, 4) or 0
+        kv = min(self.n_kv_heads, heads) if self.n_kv_heads else 0
+        if heads and kv:
+            kv = heads // max(1, heads // kv)  # keep a GQA ratio > 1 if it had one
+        changes = dict(
+            n_layers=2,
+            d_model=d,
+            n_heads=heads,
+            n_kv_heads=kv,
+            head_dim=(d // heads if heads else None),
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            window=min(self.window, 64),
+            chunk=min(self.chunk, 64),
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            experts_per_token=(min(self.experts_per_token, 2)
+                               if self.experts_per_token else 0),
+            # drop-free capacity so prefill/decode stay bit-consistent in the
+            # smoke tests (production configs keep the real 1.25 and drop).
+            capacity_factor=float(max(self.n_experts, 1)),
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=16 if self.ssm_state else self.ssm_headdim,
+            shared_attn_every=(1 if self.shared_attn_every else 0),
+            n_modal_tokens=min(self.n_modal_tokens, 16),
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_len=min(self.encoder_len, 32),
+            scan_layers=False,
+            remat=False,
+        )
+        return dataclasses.replace(self, **changes)
+
+    def with_dtype(self, dtype: str, param_dtype: str | None = None) -> "ArchConfig":
+        return dataclasses.replace(self, dtype=dtype,
+                                   param_dtype=param_dtype or dtype)

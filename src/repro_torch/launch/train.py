@@ -1,0 +1,161 @@
+"""Federated LM training driver, single host (port of
+``src/repro/launch/train.py``: ``run_training`` and ``main``).
+
+FedCET (Algorithm 2) on a real model: every client holds a replica and a
+heterogeneous token stream, takes ``tau - 1`` local steps and one
+aggregating step per round, and the FedCET update runs through the
+port's CUDA kernels on the card. It prints the reference's per-round
+lines (``round … loss … bits_up … active_clients …``).
+
+The slice runs the synchronous star round only: every scenario option of
+the reference (compression, participation, delay, topology, cohort,
+arena, telemetry, tracing, checkpoints) raises "not yet ported" when set
+to anything but its default. The mesh launcher (``make_plan``,
+``lower_train_step``) waits for a multi-GPU slice.
+
+Run as a script:
+    python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.core.api import comm_bytes_per_round
+from repro_torch.core.fedcet import FedCET
+from repro_torch.data.synthetic import make_hetero_lm_dataset
+from repro_torch.models import build_model
+from repro_torch.utils.tree import tree_map, tree_num_params
+
+#: the reference's scenario options and their defaults; this slice runs
+#: the defaults only.
+SCENARIO_DEFAULTS = {
+    "compression": "none", "compression_plan": "none", "plan_adapt": 0.0,
+    "participation": 1.0, "delay": "none", "stale_policy": "last",
+    "topology": "star", "tier_compression": "none", "cohort": "none",
+    "arena": False, "telemetry": None, "trace_rounds": None,
+    "ckpt_dir": None,
+}
+
+
+def run_training(arch: str, *, steps: int = 100, tau: int = 2,
+                 n_clients: int = 4, batch: int = 8, seq_len: int = 128,
+                 alpha: float = 3e-3, c: float = 0.05,
+                 heterogeneity: float = 0.8, reduced: bool = True,
+                 seed: int = 0, device=None, log_every: int = 10,
+                 callback=None, **scenario) -> dict:
+    """End-to-end FedCET LM training on ``device`` (``cuda`` unless the
+    caller passes another; with no card and no explicit device it raises).
+
+    Returns the history ``{"round", "loss", "comm_bytes", "seconds"}`` of
+    the logged rounds (every ``log_every``-th and the last) and the model's
+    ``n_params``: ``loss`` is the mean client loss on the round's first
+    batch after the round, as in the reference; ``seconds`` is the round's
+    host-clock time, measured after the device has finished it. ``callback(round, loss, comm_bytes,
+    state)`` runs after each logged round."""
+    for k, v in scenario.items():
+        if k not in SCENARIO_DEFAULTS:
+            raise TypeError(f"run_training() got an unexpected option {k!r}")
+        if v != SCENARIO_DEFAULTS[k]:
+            raise NotImplementedError(
+                f"{k}={v!r} is not yet ported to PyTorch (this slice runs "
+                f"the synchronous star round: {k}={SCENARIO_DEFAULTS[k]!r})")
+    device = resolve_device(device)
+    if device.type == "cuda":
+        # full-float32 matmuls: what the reference computes on its CPU path.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    algo = FedCET(alpha=alpha, c=c, tau=tau, n_clients=n_clients)
+    ds = make_hetero_lm_dataset(cfg.vocab_size, n_clients, seq_len, batch,
+                                heterogeneity=heterogeneity, seed=seed,
+                                device=device)
+    grad_fn = torch.func.grad(model.loss)
+    client_losses = torch.func.vmap(model.loss)
+
+    def batches_for(r):
+        return {"tokens": ds.sample_round(r, tau)}  # [tau, C, B, S]
+
+    state = algo.init(grad_fn, params,
+                      tree_map(lambda b: b[0], batches_for(0)))
+    n_params = tree_num_params(params)
+    per_round = comm_bytes_per_round(algo, n_params, 4, n_clients)
+    up_bits = 8 * per_round["up"]
+
+    history = {"round": [], "loss": [], "comm_bytes": [], "seconds": [],
+               "n_params": n_params}
+    for r in range(steps):
+        b = batches_for(r)
+        _sync(device)
+        t0 = time.perf_counter()
+        state = algo.round(grad_fn, state, b)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        with torch.no_grad():
+            loss = float(torch.mean(client_losses(
+                algo.client_params(state),
+                tree_map(lambda a: a[0], b))))
+        if r % log_every == 0 or r == steps - 1:
+            print(f"round {r:5d}  loss {loss:.4f}  "
+                  f"bits_up {(r + 1) * up_bits:.4g}  "
+                  f"active_clients {n_clients}")
+            comm = (r + 1) * per_round["total"]
+            history["round"].append(r)
+            history["loss"].append(loss)
+            history["comm_bytes"].append(comm)
+            history["seconds"].append(seconds)
+            if callback:
+                callback(r, loss, comm, state)
+    return history
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--tau", type=int, default=2)
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--alpha", type=float, default=3e-3)
+    ap.add_argument("--full", action="store_true",
+                    help="use the full (non-reduced) architecture")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu; without a card the "
+                         "default raises instead of falling back")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="print a per-round summary line every k rounds")
+    for k, v in SCENARIO_DEFAULTS.items():
+        ap.add_argument("--" + k.replace("_", "-"), default=v,
+                        type=type(v) if v is not None else None,
+                        help="not yet ported: only the default is accepted")
+    args = vars(ap.parse_args(argv))
+    scenario = {k: args.pop(k) for k in SCENARIO_DEFAULTS}
+    hist = run_training(
+        args["arch"], steps=args["steps"], tau=args["tau"],
+        n_clients=args["clients"], batch=args["batch"],
+        seq_len=args["seq_len"], alpha=args["alpha"],
+        reduced=not args["full"], device=args["device"],
+        log_every=args["log_every"], **scenario)
+    print("final loss:", hist["loss"][-1])
+
+
+if __name__ == "__main__":
+    main()

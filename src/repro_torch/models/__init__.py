@@ -1,0 +1,17 @@
+"""Model zoo of the port (port of ``src/repro/models/__init__.py``):
+slice 1 builds the dense transformer family."""
+
+from repro_torch.configs.base import ArchConfig
+
+
+def build_model(cfg: ArchConfig):
+    """Family dispatch; the other families are not yet ported."""
+    if cfg.family == "dense":
+        from repro_torch.models.transformer import TransformerLM
+
+        return TransformerLM(cfg)
+    raise NotImplementedError(f"model family {cfg.family!r} is not yet "
+                              "ported (dense only)")
+
+
+__all__ = ["ArchConfig", "build_model"]

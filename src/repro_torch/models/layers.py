@@ -1,0 +1,84 @@
+"""Shared building blocks (port of ``src/repro/models/layers.py``): pure
+functions over parameter dicts, with the reference's layouts (dense
+weights ``[d_in, d_out]``, used as ``x @ w``) and its numerics: RMSNorm
+and RoPE compute in float32 whatever the input dtype, exactly where the
+reference casts."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------- init
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
+               lead: tuple = (), scale: float | None = None,
+               device=None) -> torch.Tensor:
+    """N(0, 1/d_in) weights ``[*lead, d_in, d_out]``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn(lead + (d_in, d_out), generator=gen, device=device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, *,
+               device=None) -> torch.Tensor:
+    return (torch.randn((vocab, d), generator=gen, device=device)
+            * 0.02).to(dtype)
+
+
+def init_norm(d: int, dtype, *, lead: tuple = (), device=None) -> dict:
+    """RMSNorm weight stored as a delta around 1 (zeros = identity)."""
+    return {"weight": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+
+
+# -------------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
+             eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + weight.to(torch.float32))).to(dtype)
+
+
+# --------------------------------------------------------------------- rope
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: [..., S, H, Dh]; positions: broadcastable to [..., S]. Half-split
+    layout (first half / second half of Dh), in float32."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, device=x.device)     # [Dh/2]
+    angles = positions[..., None].to(torch.float32) * freqs        # [..., S, Dh/2]
+    angles = angles[..., None, :]                                  # [..., S, 1, Dh/2]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- mlp
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype, *,
+             activation: str, lead: tuple = (), device=None) -> dict:
+    if activation != "swiglu":
+        raise NotImplementedError(f"{activation} MLP is not yet ported")
+    return {
+        "gate": dense_init(gen, d, d_ff, dtype, lead=lead, device=device),
+        "up": dense_init(gen, d, d_ff, dtype, lead=lead, device=device),
+        "down": dense_init(gen, d_ff, d, dtype, lead=lead, device=device),
+    }
+
+
+def apply_mlp(x: torch.Tensor, params: dict, *,
+              activation: str) -> torch.Tensor:
+    if activation != "swiglu":
+        raise NotImplementedError(f"{activation} MLP is not yet ported")
+    h = F.silu(x @ params["gate"]) * (x @ params["up"])
+    return h @ params["down"]
