@@ -7,20 +7,33 @@ Drives the port (``src/repro_torch``) only, and imports nothing of JAX or
 of the JAX package. Phases, one JSON line each:
 
 1. device    — the card, its power limit, the software versions;
-2. build     — the CUDA kernels compiled from ``csrc/`` with nvcc;
-3. kernels   — each kernel against its plain PyTorch version at the main
-               path's shapes (the largest stacked fedlm-100m leaf, float32),
-               in float64, at a ragged size and at the quadratic's shape;
-               kernel, plain and bound times from CUDA events;
-4. quadratic — FedCET on the paper's §IV problem (float64, 400 rounds)
-               through the kernels; must reach the exact optimum (< 1e-9);
+2. build     — every CUDA source of ``csrc/`` compiled with nvcc (one
+               process per source, all started together) and linked;
+3. kernels   — each kernel form against its plain PyTorch version, at
+               tolerance 0, at the main path's shapes (the largest stacked
+               fedlm-100m leaf ``[4, 14, 640, 2560]``, or the arena
+               ``[4, 104499, 1024]``) in float32 and float64, at ragged
+               sizes and at the edge cases (zero scales, zero client
+               weights, per-client dither); kernel, plain and bound times
+               from CUDA events;
+4. quadratic — FedCET on the paper's §IV problem in float64 through the
+               kernels: uncompressed (400 rounds), ``shift:q8`` on the
+               arena through the fused tail and per leaf (both must reach
+               < 1e-9), and ``shift:q8`` on the arena at 0.8 participation
+               (within 10x of the uncompressed run under the same
+               sampling);
 5. parity    — one FedCET round of the reduced model on the card and on
                the CPU from the same parameters and tokens;
-6. train     — the main path: ``run_training`` of fedlm-100m at full width
-               (4 clients, batch 8, seq 128, tau 2, 5 rounds), with the
-               kernels' launch counts reset just before and read just after,
-               per-round loss, time, the Lemma 2 invariant and where the
-               round's time goes (gradients vs the two kernels).
+6. prng      — the threefry dither of the whole fedlm-100m model, timed;
+7. train     — ``run_training`` of fedlm-100m at full width (4 clients,
+               batch 8, seq 128, tau 2, 5 rounds) on four paths, each with
+               the launch counts reset just before and read just after:
+               (A) the dense star round, (B) THIS SLICE'S MAIN PATH,
+               ``shift:q8`` on the arena (the fused round tail), (C)
+               ``shift:q8`` per leaf at participation 0.75, (D) ``q8`` on
+               the arena. Per round: loss, time, the Lemma 2 residual and
+               where the time goes (gradients, each kernel, the dither, the
+               scale pass, pack/unpack).
 
 Then the kernels summary line, the ``nvidia-smi`` name/power-limit line and
 the final ``{"ok": true, ...}`` line. Any failed check raises: the script
@@ -46,8 +59,25 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM float32, outside the tensor cores
 FP64_FLOPS = 34e12             # H100 SXM float64, outside the tensor cores
 MAIN_SHAPE = (4, 14, 640, 2560)  # fedlm-100m's largest stacked leaf (mlp)
+ARENA_SHAPE = (4, 104_499, 1024)  # fedlm-100m's stacked arena
 ALPHA, C = 3e-3, 0.05
+BITS, BETA = 8, 1.0              # shift:q8: 8-bit codes, DIANA step 1
 INVARIANT_MAX = 1e-5           # ||sum_i d_i|| / (c ||x||), float32 rounding
+TRAIN = dict(n_clients=4, batch=8, seq_len=128, tau=2, steps=5)
+SRC = "src/repro_torch/kernels/csrc/"
+#: kernel form -> (source, TPU kernel it replaces: def / pallas_call line)
+KERNELS = {
+    "fedcet_v": ("fedcet_update.cu", "src/repro/kernels/fedcet_update.py:45"),
+    "fedcet_comm": ("fedcet_update.cu",
+                    "src/repro/kernels/fedcet_update.py:154"),
+    "fedcet_comm4": ("fedcet_update.cu",
+                     "src/repro/kernels/fedcet_update.py:80"),
+    "stochastic_quantize": ("quantize.cu", "src/repro/kernels/quantize.py:59"),
+    "stochastic_quantize_rows": ("quantize.cu",
+                                 "src/repro/kernels/quantize.py:90"),
+    "fedcet_round_tail": ("fedcet_update.cu",
+                          "src/repro/kernels/fedcet_update.py:136"),
+}
 
 
 class SmokeFailure(AssertionError):
@@ -93,14 +123,15 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 
 # ---------------------------------------------------------------- phases
 def phase_build():
-    from repro_torch.kernels import fedcet_update as K
+    from repro_torch.kernels import library as L
 
-    path, seconds, log = K.build(verbose=True)
+    path, seconds, log = L.build(verbose=True)
     regs = [ln.split("Used", 1)[1].strip() for ln in log.splitlines()
             if "Used" in ln and "registers" in ln]
-    emit({"phase": "build", "source": str(K.SOURCE.relative_to(ROOT)),
+    emit({"phase": "build",
+          "sources": [str(f.relative_to(ROOT)) for f in L.SOURCES],
           "library": str(Path(path).relative_to(ROOT)),
-          "seconds": seconds, "flags": list(K.NVCC_FLAGS),
+          "seconds": seconds, "flags": list(L.NVCC_FLAGS),
           "ptxas_registers": regs})
 
 
@@ -110,94 +141,226 @@ def _operands(shape, dtype, n, seed):
             for _ in range(n)]
 
 
+def _uniform(shape, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand(shape, generator=gen, device="cuda", dtype=dtype)
+
+
 def _max_err(got, want) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(got, want))
 
 
-def phase_kernels():
-    """Every kernel against its plain version; bitwise (tolerance 0) since
-    the kernels are built with --fmad=false."""
+def _case_fedcet(form, shape, dtype, seed):
+    """(kernel, plain, bytes, flops) of a triad / pair case."""
     from repro_torch.kernels import fedcet_update as K
     from repro_torch.kernels import ref
 
-    results = {}
-    for form in ("fedcet_v", "fedcet_comm", "fedcet_comm4"):
-        # ragged: 100003 elements (v) or columns (comm) defeat the 16-byte
-        # vector path; (10, 60) float64 is the quadratic phase's shape.
+    a, b, e = _operands(shape, dtype, 3, seed)
+    es = a.element_size()
+    if form == "fedcet_v":
+        return (lambda: (K.fedcet_v(a, b, e, ALPHA),),
+                lambda: (ref.fedcet_v(a, b, e, ALPHA),),
+                4 * a.numel() * es, 4 * a.numel())
+    mb = b.mean(0, keepdim=True)
+    vv = e if form == "fedcet_comm4" else None
+    reads = 3 if vv is not None else 2
+    return (lambda: K.fedcet_comm(a, b, mb, C, ALPHA, v=vv),
+            lambda: ref.fedcet_comm(a, b, mb, C, ALPHA, v=vv),
+            ((reads + 2) * b.numel() + mb.numel()) * es, 5 * b.numel())
+
+
+def _case_quantize(shape, dtype, seed, per_client=False, zero=False):
+    """One scale per leaf; u shared ([...]) or per client ([C, ...])."""
+    from repro_torch.kernels import quantize as KQ
+    from repro_torch.kernels import ref
+
+    (a,) = _operands(shape, dtype, 1, seed)
+    u = _uniform(shape if per_client else shape[1:], dtype, seed + 1)
+    s = (torch.zeros((), dtype=dtype, device="cuda") if zero
+         else a.abs().amax() / 127)
+    es = a.element_size()
+    return (lambda: (KQ.stochastic_quantize(a, u, s, BITS),),
+            lambda: (ref.stochastic_quantize(a, u, s, BITS),),
+            (2 * a.numel() + u.numel() + 1) * es, 4 * a.numel())
+
+
+def _arena_rows_scale(a, zero_rows=True):
+    s = a.abs().amax(dim=(0, 2)) / 127
+    if zero_rows:
+        s[1::97] = 0.0  # constant-zero leaves quantize to 0
+    return s[:, None].contiguous()
+
+
+def _case_quantize_rows(shape, dtype, seed):
+    from repro_torch.kernels import quantize as KQ
+    from repro_torch.kernels import ref
+
+    (a,) = _operands(shape, dtype, 1, seed)
+    u = _uniform(shape[1:], dtype, seed + 1)
+    s = _arena_rows_scale(a)
+    es = a.element_size()
+    return (lambda: (KQ.stochastic_quantize_rows(a, u, s, BITS),),
+            lambda: (ref.stochastic_quantize_rows(a, u, s, BITS),),
+            (2 * a.numel() + u.numel() + s.numel()) * es, 4 * a.numel())
+
+
+def _case_round_tail(shape, dtype, seed, mask=None):
+    """v, h, d [C, rows, lanes], shared dither, a scale per row (some zero),
+    client weights from ``mask`` (zeros for absent clients) and den."""
+    from repro_torch.kernels import fedcet_update as K
+    from repro_torch.kernels import ref
+
+    v, h, d = _operands(shape, dtype, 3, seed)
+    h.mul_(0.5)
+    u = _uniform(shape[1:], dtype, seed + 1)
+    s = _arena_rows_scale(v - h)
+    n = shape[0]
+    m = torch.ones(n, dtype=torch.bool) if mask is None else torch.tensor(mask)
+    w = m.to(dtype).reshape(n, 1).cuda()
+    den = torch.clamp(m.to(torch.int64).sum(), min=1).to(dtype).reshape(
+        1, 1).cuda()
+    kw = dict(c=C, alpha=ALPHA, beta=BETA, bits=BITS)
+    es = v.element_size()
+    return (lambda: K.fedcet_round_tail(v, h, d, u, s, w, den, **kw),
+            lambda: ref.fedcet_round_tail(v, h, d, u, s, w, den, **kw),
+            (6 * v.numel() + u.numel() + s.numel() + n + 1) * es,
+            14 * v.numel())
+
+
+def _cases(form):
+    """(label, shape, dtype, builder) cases of one kernel form; the first
+    float32 case at the main path's shape is the one timed."""
+    f32, f64 = torch.float32, torch.float64
+    if form in ("fedcet_v", "fedcet_comm", "fedcet_comm4"):
         ragged = (100_003,) if form == "fedcet_v" else (4, 100_003)
-        cases = [(MAIN_SHAPE, torch.float32), (MAIN_SHAPE, torch.float64),
-                 (ragged, torch.float32), (ragged, torch.float64),
-                 ((10, 60), torch.float64)]
+        return [(lbl, sh, dt, lambda sh, dt, i: _case_fedcet(form, sh, dt, i))
+                for lbl, sh, dt in (("main", MAIN_SHAPE, f32),
+                                    ("main", MAIN_SHAPE, f64),
+                                    ("ragged", ragged, f32),
+                                    ("ragged", ragged, f64),
+                                    ("quadratic", (10, 60), f64))]
+    if form == "stochastic_quantize":
+        q = _case_quantize
+        return [("main", MAIN_SHAPE, f32, q), ("main", MAIN_SHAPE, f64, q),
+                ("ragged", (4, 100_003), f32, q),
+                ("ragged", (3, 5, 517), f64, q),
+                ("per_client_dither", (4, 100_003), f32,
+                 lambda sh, dt, i: q(sh, dt, i, per_client=True)),
+                ("zero_scale", (4, 1030), f64,
+                 lambda sh, dt, i: q(sh, dt, i, zero=True))]
+    if form == "stochastic_quantize_rows":
+        r = _case_quantize_rows
+        return [("main", ARENA_SHAPE, f32, r), ("main", ARENA_SHAPE, f64, r),
+                ("ragged", (3, 97, 1030), f32, r),
+                ("ragged", (1, 13, 7), f64, r)]
+    t = _case_round_tail
+    return [("main", ARENA_SHAPE, f32, t), ("main", ARENA_SHAPE, f64, t),
+            ("masked", (4, 2048, 1024), f32,
+             lambda sh, dt, i: t(sh, dt, i, mask=[True, False, True, True])),
+            ("one_client", (1, 300, 1024), f64, t),
+            ("ragged", (3, 97, 1030), f32,
+             lambda sh, dt, i: t(sh, dt, i, mask=[False, True, True])),
+            ("seven_clients", (7, 33, 1024), f64, t),
+            ("ragged", (4, 5, 7), f64, t),
+            ("no_client_present", (3, 9, 1024), f32,
+             lambda sh, dt, i: t(sh, dt, i, mask=[False, False, False]))]
+
+
+def phase_kernels():
+    """Every kernel form against its plain version; bitwise (tolerance 0)
+    since the kernels are built with --fmad=false."""
+    from repro_torch.kernels import library as L
+
+    results = {}
+    for form in KERNELS:
         errs, timing = [], None
-        K.reset_launches()
-        for shape, dtype in cases:
-            a, b, e = _operands(shape, dtype, 3, seed=len(errs))
-            if form == "fedcet_v":
-                x, g, d = a, b, e
-                kern = lambda: (K.fedcet_v(x, g, d, ALPHA),)  # noqa: E731
-                plain = lambda: (ref.fedcet_v(x, g, d, ALPHA),)  # noqa: E731
-                nbytes = 4 * x.numel() * x.element_size()
-                flops = 4 * x.numel()
-            else:
-                d, m, v = a, b, e
-                mb = m.mean(0, keepdim=True)
-                vv = v if form == "fedcet_comm4" else None
-                kern = lambda: K.fedcet_comm(d, m, mb, C, ALPHA, v=vv)  # noqa: E731
-                plain = lambda: ref.fedcet_comm(d, m, mb, C, ALPHA, v=vv)  # noqa: E731
-                reads = 3 if vv is not None else 2
-                nbytes = ((reads + 2) * m.numel() + mb.numel()) * m.element_size()
-                flops = 5 * m.numel()
+        L.reset_launches()
+        for i, (label, shape, dtype, build) in enumerate(_cases(form)):
+            kern, plain, nbytes, flops = build(shape, dtype, i)
             err = _max_err(kern(), plain())
             torch.cuda.synchronize()
-            errs.append({"shape": list(shape), "dtype": str(dtype)[6:],
-                         "max_abs_err": err})
-            check(err == 0.0, f"{form} {shape} {dtype}: kernel differs from "
-                              f"its plain version by {err}")
-            if shape == MAIN_SHAPE and dtype == torch.float32:
+            errs.append({"case": label, "shape": list(shape),
+                         "dtype": str(dtype)[6:], "max_abs_err": err})
+            check(err == 0.0, f"{form} {label} {shape} {dtype}: kernel "
+                              f"differs from its plain version by {err}")
+            if timing is None and label == "main" and dtype == torch.float32:
                 p1, k1, k2, p2 = (time_ms(plain), time_ms(kern),
                                   time_ms(kern), time_ms(plain))
                 b_ms, b_by = bound(nbytes, flops, dtype)
-                timing = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                          "bound_ms": b_ms, "bound_by": b_by,
-                          "bytes": nbytes, "flops": flops,
-                          "max_abs_err": err}
+                timing = {"shape": list(shape), "ms": (k1 + k2) / 2,
+                          "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
+                          "bound_by": b_by, "bytes": nbytes, "flops": flops}
+            del kern, plain
             torch.cuda.empty_cache()
         results[form] = {**timing, "checks": errs, "tolerance": 0.0,
-                         "launches": sum(K.LAUNCHES.values())}
+                         "max_abs_err": max(c["max_abs_err"] for c in errs),
+                         "check_launches": L.LAUNCHES[form]}
         emit({"phase": "kernels", "kernel": form, **results[form]})
     return results
 
 
 def phase_quadratic():
+    """The paper's problem in float64 through the kernels: uncompressed,
+    and the compressed, sampled, arena-packed rounds of this slice."""
     from repro_torch.core import FedCET, max_weight_c
+    from repro_torch.core.engine import (with_arena, with_compression,
+                                         with_participation)
     from repro_torch.core.lr_search import lr_search
     from repro_torch.core.simulate import simulate_quadratic
     from repro_torch.data.quadratic import make_quadratic_problem
-    from repro_torch.kernels import fedcet_update as K
+    from repro_torch.kernels import library as L
 
     problem = make_quadratic_problem(0, device="cuda")
     tau = 2
     alpha = lr_search(problem.mu, problem.L, tau)
-    algo = FedCET(alpha=alpha, c=max_weight_c(problem.mu, alpha), tau=tau,
+    base = FedCET(alpha=alpha, c=max_weight_c(problem.mu, alpha), tau=tau,
                   n_clients=problem.n_clients)
-    K.reset_launches()
-    t0 = time.perf_counter()
-    res = simulate_quadratic(algo, problem, 400, device="cuda")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    shift = lambda a: with_compression(a, compressor="shift:q8")  # noqa: E731
+    sampled = with_participation(base, 0.8, seed=3)
+    runs = {
+        "plain": (base, 400),
+        "shift_q8_arena_fused": (shift(with_arena(base)), 400),
+        "shift_q8_per_leaf": (shift(base), 400),
+        "sampled_0.8": (sampled, 800),
+        "shift_q8_arena_sampled_0.8": (shift(with_arena(sampled)), 800),
+    }
+    finals, launches, curves = {}, {}, {}
+    for name, (algo, rounds) in runs.items():
+        L.reset_launches()
+        t0 = time.perf_counter()
+        res = simulate_quadratic(algo, problem, rounds, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = {k: n for k, n in L.LAUNCHES.items() if n}
+        finals[name], curves[name] = res.final_error, res.errors
+        emit({"phase": "quadratic", "run": name, "rounds": rounds,
+              "dtype": "float64", "alpha": alpha, "c": base.c,
+              "final_error": res.final_error, "seconds": seconds,
+              "launches": launches[name]})
     plain = simulate_quadratic(
-        dataclasses.replace(algo, use_fused_kernel=False), problem, 400,
+        dataclasses.replace(base, use_fused_kernel=False), problem, 400,
         device="cuda")
-    diff = float((res.errors - plain.errors).abs().max())
-    emit({"phase": "quadratic", "rounds": 400, "dtype": "float64",
-          "alpha": alpha, "c": algo.c, "final_error": res.final_error,
-          "max_diff_vs_plain_path": diff, "seconds": seconds,
-          "launches": launches})
-    check(res.final_error < 1e-9,
-          f"quadratic did not reach the exact optimum: {res.final_error}")
+    diff = float((plain.errors - curves["plain"]).abs().max())
+    emit({"phase": "quadratic", "run": "plain_path_without_kernels",
+          "final_error": plain.final_error, "max_diff_vs_kernels": diff})
+    for name in ("plain", "shift_q8_arena_fused", "shift_q8_per_leaf"):
+        check(finals[name] < 1e-9,
+              f"quadratic {name} did not reach the exact optimum: "
+              f"{finals[name]}")
     check(diff <= 1e-12, f"kernel and plain FedCET paths differ by {diff}")
-    check(all(n > 0 for n in launches.values()), f"launches {launches}")
+    check(finals["shift_q8_arena_sampled_0.8"] < 10 * finals["sampled_0.8"],
+          f"shift:q8 x 0.8 sampling {finals['shift_q8_arena_sampled_0.8']} "
+          f"not within 10x of uncompressed {finals['sampled_0.8']}")
+    expect = {"plain": ("fedcet_v", "fedcet_comm"),
+              "shift_q8_arena_fused": ("fedcet_v", "fedcet_round_tail"),
+              "shift_q8_per_leaf": ("fedcet_v", "stochastic_quantize",
+                                    "fedcet_comm4"),
+              "shift_q8_arena_sampled_0.8": ("fedcet_v", "fedcet_round_tail")}
+    for name, forms in expect.items():
+        check(all(launches[name].get(f, 0) > 0 for f in forms),
+              f"quadratic {name}: expected launches of {forms}, got "
+              f"{launches[name]}")
+    return launches
 
 
 def phase_parity():
@@ -236,9 +399,39 @@ def phase_parity():
           "worst_error_over_tolerance": worst})
 
 
+def phase_prng():
+    """The threefry dither of the whole fedlm-100m model (one uniform draw
+    per leaf at its shape, float32), as the compressed round draws it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_leaves
+
+    params = build_model(get_config("fedlm-100m")).init(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    shapes = [tuple(t.shape) for t in tree_leaves(params)]
+    key = prng.key(0)
+
+    def draw():
+        return [prng.uniform(prng.fold_in(key, i), s, torch.float32,
+                             device="cuda") for i, s in enumerate(shapes)]
+
+    ms = time_ms(draw, iters=3, warmup=1)
+    n = sum(math.prod(s) for s in shapes)
+    emit({"phase": "prng", "what": "per-leaf uniform dither, float32",
+          "leaves": len(shapes), "elements": n, "ms": ms,
+          "write_bound_ms": 1e3 * 4 * n / HBM_BYTES_PER_S})
+    del params
+    torch.cuda.empty_cache()
+
+
 class _Timeline:
-    """CUDA-event intervals of the gradient evaluations and the two kernel
-    wrappers, grouped per training round (closed by the round callback)."""
+    """CUDA-event intervals of the gradient evaluations, the kernel
+    wrappers, the dither draws, the scale pass and pack/unpack, grouped per
+    training round (closed by the round callback)."""
+
+    KEYS = ("grad", "fedcet_v", "fedcet_comm", "quantize", "round_tail",
+            "dither", "scale", "pack")
 
     def __init__(self):
         self.open, self.rounds = [], []
@@ -256,66 +449,128 @@ class _Timeline:
 
     def close_round(self):
         torch.cuda.synchronize()
-        split = {"grad_ms": 0.0, "fedcet_v_ms": 0.0, "fedcet_comm_ms": 0.0}
+        split = {k + "_ms": 0.0 for k in self.KEYS}
         for key, s, e in self.open:
             split[key + "_ms"] += s.elapsed_time(e)
         self.rounds.append(split)
         self.open = []
 
 
-def phase_train():
-    from repro_torch.core import engine
-    from repro_torch.kernels import fedcet_update as K
+def _instrument(timeline):
+    """Route the timed functions through ``timeline``; returns an undo."""
+    from repro_torch.core import arena, compressors, engine, prng
     from repro_torch.kernels import ops
+
+    patches = [(engine, "vmap_grads",
+                lambda real: (lambda f: timeline.wrap(real(f), "grad"))),
+               (ops, "fedcet_v", "fedcet_v"), (ops, "fedcet_comm",
+                                               "fedcet_comm"),
+               (ops, "stochastic_quantize", "quantize"),
+               (ops, "stochastic_quantize_rows", "quantize"),
+               (ops, "fedcet_round_tail", "round_tail"),
+               (prng, "uniform", "dither"),
+               (compressors, "arena_scale", "scale"),
+               (arena, "pack_rows", "pack"), (arena, "unpack", "pack")]
+    saved = []
+    for mod, name, how in patches:
+        real = getattr(mod, name)
+        saved.append((mod, name, real))
+        setattr(mod, name, how(real) if callable(how)
+                else timeline.wrap(real, how))
+
+    def undo():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+    return undo
+
+
+#: train paths: scenario options and the kernel forms each must launch
+#: (B, the main path, must launch exactly these counts: init + 5 rounds).
+PATHS = {
+    "A_dense": ({}, ("fedcet_v", "fedcet_comm")),
+    "B_shift_q8_arena": ({"compression": "shift:q8", "arena": True},
+                         ("fedcet_v", "fedcet_round_tail")),
+    "C_shift_q8_per_leaf_p0.75": ({"compression": "shift:q8",
+                                   "participation": 0.75},
+                                  ("fedcet_v", "stochastic_quantize",
+                                   "fedcet_comm4")),
+    "D_q8_arena": ({"compression": "q8", "arena": True},
+                   ("fedcet_v", "stochastic_quantize_rows", "fedcet_comm4")),
+}
+MAIN_PATH_LAUNCHES = {"fedcet_v": 11, "fedcet_round_tail": 6}
+
+
+def _train_path(name, scenario, expected):
+    from repro_torch.kernels import library as L
     from repro_torch.launch.train import run_training
     from repro_torch.utils.tree import tree_leaves
 
     timeline = _Timeline()
-    real = (engine.vmap_grads, ops.fedcet_v, ops.fedcet_comm)
-    engine.vmap_grads = lambda f: timeline.wrap(real[0](f), "grad")
-    ops.fedcet_v = timeline.wrap(real[1], "fedcet_v")
-    ops.fedcet_comm = timeline.wrap(real[2], "fedcet_comm")
+    undo = _instrument(timeline)
     invariants = []
 
     def on_round(r, loss, comm, state):
         timeline.close_round()
+        inner = state.inner if hasattr(state, "extras") else state
         norm = lambda ts: math.sqrt(sum(float(t.double().pow(2).sum())  # noqa: E731
                                         for t in ts))
-        d = tree_leaves(state.d)
+        # arena data or per-leaf tensors: pads are 0, so the norms agree.
+        d = tree_leaves(inner.d)
         resid = norm(t.double().sum(0) for t in d)
-        # d_i = c (v_i - mean v) accumulates float32 rounding of v, so the
+        # d_i = c (m_i - mean m) accumulates float32 rounding, so the
         # residual is measured against c ||x||; against ||d|| (small while
         # the clients are still close) it reads ~1e-4 in the reference too.
         invariants.append({"sum_d_over_c_x": resid / (C * norm(
-            tree_leaves(state.x))), "sum_d_over_d": resid / norm(d)})
-        check(math.isfinite(loss), f"round {r}: loss {loss}")
+            tree_leaves(inner.x))), "sum_d_over_d": resid / norm(d)})
+        check(math.isfinite(loss), f"{name} round {r}: loss {loss}")
         check(invariants[-1]["sum_d_over_c_x"] <= INVARIANT_MAX,
-              f"round {r}: Lemma 2 residual {invariants[-1]}")
+              f"{name} round {r}: Lemma 2 residual {invariants[-1]}")
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launches()
+    L.reset_launches()
     try:
-        hist = run_training("fedlm-100m", reduced=False, n_clients=4,
-                            batch=8, seq_len=128, tau=2, steps=5,
-                            device="cuda", log_every=1, callback=on_round)
+        hist = run_training("fedlm-100m", reduced=False, device="cuda",
+                            log_every=1, callback=on_round, **TRAIN,
+                            **scenario)
     finally:
-        engine.vmap_grads, ops.fedcet_v, ops.fedcet_comm = real
-    launches = dict(K.LAUNCHES)
+        undo()
+    launches = dict(L.LAUNCHES)
     for i, r in enumerate(hist["round"]):
-        emit({"phase": "train", "round": r, "loss": hist["loss"][i],
-              "round_s": hist["seconds"][i],
-              "invariant": invariants[i],
-              "split_ms": timeline.rounds[i],
+        split = timeline.rounds[i]
+        split["other_ms"] = 1e3 * hist["seconds"][i] - sum(split.values())
+        emit({"phase": "train", "path": name, "round": r,
+              "loss": hist["loss"][i], "round_s": hist["seconds"][i],
+              "invariant": invariants[i], "split_ms": split,
               "note": "round 0 also holds the warm-up" if r == 0 else ""})
-    emit({"phase": "train", "arch": "fedlm-100m", "reduced": False,
-          "n_params": hist["n_params"], "clients": 4, "batch": 8, "seq_len": 128,
-          "tau": 2, "rounds": len(hist["round"]),
+    emit({"phase": "train", "path": name, "scenario": scenario,
+          "arch": "fedlm-100m", "reduced": False,
+          "n_params": hist["n_params"], **TRAIN,
+          "rounds": len(hist["round"]),
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches})
-    check(len(hist["loss"]) == 5, "train did not log 5 rounds")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
+    check(len(hist["loss"]) == TRAIN["steps"], f"{name}: not 5 rounds")
+    check(all(launches[f] > 0 for f in expected),
+          f"{name}: a kernel of the path never launched: {launches}")
     return launches
+
+
+def phase_train():
+    launches = {name: _train_path(name, scenario, expected)
+                for name, (scenario, expected) in PATHS.items()}
+    main = launches["B_shift_q8_arena"]
+    want = {f: MAIN_PATH_LAUNCHES.get(f, 0) for f in main}
+    check(main == want, f"main path launches {main}, expected {want}")
+    return launches
+
+
+#: the path whose run each kernel's summary launch count comes from.
+OWNER = {"fedcet_v": "B_shift_q8_arena", "fedcet_comm": "A_dense",
+         "fedcet_comm4": "C_shift_q8_per_leaf_p0.75",
+         "stochastic_quantize": "C_shift_q8_per_leaf_p0.75",
+         "stochastic_quantize_rows": "D_q8_arena",
+         "fedcet_round_tail": "B_shift_q8_arena"}
 
 
 def main() -> int:
@@ -336,27 +591,20 @@ def main() -> int:
     kernels = phase_kernels()
     phase_quadratic()
     phase_parity()
-    launches = phase_train()
-    src = "src/repro_torch/kernels/csrc/fedcet_update.cu"
+    phase_prng()
+    paths = phase_train()
     summary = []
-    for name, form, replaces in (
-            ("fedcet_v", "fedcet_v",
-             "src/repro/kernels/fedcet_update.py:45"),
-            ("fedcet_comm", "fedcet_comm",
-             "src/repro/kernels/fedcet_update.py:154")):
+    for form, (src, replaces) in KERNELS.items():
         k = kernels[form]
         summary.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(c["max_abs_err"] for c in k["checks"]),
-            "ms": k["ms"], "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None})
-    four = kernels["fedcet_comm4"]
-    summary[1]["four_operand"] = {
-        "replaces": "src/repro/kernels/fedcet_update.py:80",
-        "max_abs_err": max(c["max_abs_err"] for c in four["checks"]),
-        **{k: four[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+            "name": form, "route": "cuda", "source": SRC + src,
+            "replaces": replaces, "launches": paths[OWNER[form]][form],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+            "launches_by_path": {p: n[form] for p, n in paths.items()}})
+    check(all(s["launches"] > 0 for s in summary),
+          f"a kernel form has no launch on its path: {summary}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": summary})
     print(smi)

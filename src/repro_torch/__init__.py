@@ -6,10 +6,15 @@ file it ports in its docstring. The port imports ``torch`` and never
 the reference on the CPU, and ``chip_smoke.py`` at the repository root
 drives it on an NVIDIA H100.
 
-Ported so far (slice 1): FedCET federated training of ``fedlm-100m`` at
+Ported so far. Slice 1: FedCET federated training of ``fedlm-100m`` at
 full width, the paper's quadratic problem, and hand-written CUDA kernels
 for the FedCET local-step triad and the aggregation pair
-(``kernels/csrc/fedcet_update.cu``).
+(``kernels/csrc/fedcet_update.cu``). Slice 2: the compressed round the
+reference is built around: ``jax.random``'s bits (``core/prng.py``), the
+``shift:q8`` / ``q8`` / ``pq8`` uplink (``core/compressors.py``), client
+sampling, the packed parameter arena (``core/arena.py``) and CUDA kernels
+for the dithered quantizer (``kernels/csrc/quantize.cu``) and the fused
+round tail (``kernels/csrc/fedcet_update.cu``).
 """
 
 import torch

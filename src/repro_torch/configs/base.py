@@ -1,5 +1,6 @@
-"""Architecture config (port of ``src/repro/configs/base.py``:
-``ArchConfig`` with ``reduced()`` and ``with_dtype``).
+"""Architecture and scenario configs (port of
+``src/repro/configs/base.py``: ``ArchConfig`` with ``reduced()`` and
+``with_dtype``, and ``FedScenario`` :127-246).
 
 A copy, not an import: the port imports nothing of the ``repro`` package.
 ``reduced()`` gives the CPU-smoke variant of the same family (2 layers,
@@ -9,7 +10,7 @@ d_model <= 256, small vocab), exactly as the reference computes it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +121,60 @@ class ArchConfig:
     def with_dtype(self, dtype: str, param_dtype: str | None = None) -> "ArchConfig":
         return dataclasses.replace(self, dtype=dtype,
                                    param_dtype=param_dtype or dtype)
+
+
+#: FedScenario fields whose mechanisms later slices port (see ROADMAP.md).
+_SCENARIO_LATER = {
+    "compression_plan": ("none", "per-leaf compression plans"),
+    "delay": ("none", "the scenario-axes slice"),
+    "stale_policy": ("last", "the scenario-axes slice"),
+    "topology": ("star", "the scenario-axes slice"),
+    "tier_compression": ("none", "the scenario-axes slice"),
+    "cohort": ("none", "the scenario-axes slice"),
+    "telemetry": (False, "the telemetry slice"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class FedScenario:
+    """Launch-level federated-scenario knob: which compressor rides the
+    uplink (``compression``, a ``core/compressors.py:from_spec`` spec such
+    as ``"shift:q8"``), what fraction of clients participates per round,
+    whether the client store lives in the packed arena, and the seed of
+    their random schedules.
+
+    The other fields mirror the reference and must stay at their defaults
+    in this slice: anything else raises "not yet ported". ``apply``
+    composes the scenario onto any engine algorithm, in the reference's
+    order."""
+
+    compression: str = "none"
+    compression_plan: Any = "none"
+    participation: float = 1.0
+    delay: str = "none"
+    stale_policy: str = "last"
+    topology: str = "star"
+    tier_compression: str = "none"
+    error_feedback: bool | None = None
+    cohort: Any = "none"
+    arena: bool = False
+    telemetry: Any = False
+    seed: int = 0
+
+    def __post_init__(self):
+        for name, (default, where) in _SCENARIO_LATER.items():
+            value = getattr(self, name)
+            if value != default and not (value is None and default == "none"):
+                raise NotImplementedError(
+                    f"FedScenario.{name}={value!r} is not yet ported to "
+                    f"PyTorch: it comes with {where}")
+
+    def apply(self, algo):
+        from repro_torch.core.engine import (with_arena, with_compression,
+                                             with_participation)
+
+        algo = with_arena(algo, self.arena)
+        algo = with_participation(algo, self.participation, seed=self.seed)
+        return with_compression(algo, compressor=self.compression,
+                                error_feedback=self.error_feedback,
+                                seed=self.seed)

@@ -1,4 +1,5 @@
-"""The federated round engine, synchronous star core (port of
+"""The federated round engine, synchronous star core with message
+compression, client sampling and the packed arena (port of
 ``src/repro/core/engine.py``).
 
 Every algorithm shares the paper's round structure (Remark 2): ``tau - 1``
@@ -11,36 +12,79 @@ the reference's hooks, under identical names and signatures:
 * ``begin_round(gf, state, first_batch, agg) -> (state, rctx)``;
 * ``local_step(gf, state, batch, rctx) -> state``;
 * ``message(gf, state, batch, rctx) -> (msg, mctx)``;
-* ``server_aggregate(state, msg, msg_bar, mctx, rctx) -> state``.
+* ``server_aggregate(state, msg, msg_bar, mctx, rctx) -> state``;
+* ``_fused_tail(inner, msg, mctx, extras, step, mask)``, optional.
+
+Composable factories, as in the reference:
+
+* :func:`with_compression` inserts a ``core/compressors.py`` compressor
+  into the message path (:class:`MessageCompression`, with a fresh PRNG key
+  per round from the state's step counter); transform memory (the shift
+  ``h`` of ``shift:q8``) rides in an :class:`EngineState` wrapper, and the
+  spec's ``server_aggregate`` receives the client's own COMPRESSED message
+  as ``msg`` (so FedCET's ``sum_i d_i = 0`` survives) and the exact local
+  vector in ``mctx``;
+* :func:`with_participation` draws a Bernoulli client mask per round
+  (from the step counter), averages over present clients only and freezes
+  absent ones;
+* :func:`with_arena` packs the model tree into the ``[clients, rows,
+  1024]`` arena of ``core/arena.py``, unpacked only at the gradient
+  boundary; on plain synchronous arena rounds the spec's ``_fused_tail``
+  may run compression -> reduce -> aggregate as one kernel.
 
 PyTorch runs eagerly, so the reference's ``lax.scan`` over local steps and
-over rounds become Python loops. This slice ports the synchronous star
-round only: message transforms, client sampling, delay, topology, cohort,
-arena and telemetry stay as fields, and setting any of them raises
-``NotImplementedError`` naming the slice that ports it.
+over rounds become Python loops, and the step counter ``t`` is a Python
+int: every PRNG key of a round is derived on the host, and only the bulk
+draws run on the card. Delay, topology, cohort and telemetry stay as
+fields, and setting any of them raises ``NotImplementedError`` naming the
+slice that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core import arena as ar
+from repro_torch.core import prng
 from repro_torch.core.api import GradFn, vmap_grads
 from repro_torch.utils.tree import tree_client_mean, tree_leaves, tree_map
 
 #: engine fields whose mechanisms later slices port (see ROADMAP.md).
 _LATER = {
-    "transforms": "the compressed-uplink slice (slice 2)",
-    "sampling": "the client-sampling slice (slice 2)",
     "delay": "the scenario-axes slice",
     "topology": "the scenario-axes slice",
     "cohort": "the scenario-axes slice",
-    "arena": "the arena slice (slice 3)",
     "telemetry": "the telemetry slice",
     "spmd_client_axes": "the multi-GPU launch slice",
 }
+
+
+class EngineState(NamedTuple):
+    """Algorithm state plus per-transform extra state (the shift memory of
+    ``shift:`` compressors). Only used when a transform is attached; bare
+    algorithms keep their bare spec state."""
+
+    inner: Any
+    extras: tuple
+
+
+# --------------------------------------------------------------------- masks
+def participation_mask(key, n_clients: int, rate: float) -> torch.Tensor:
+    """Bernoulli(rate) participation mask (a CPU bool tensor), guaranteed
+    non-empty: if no client draws in, one uniformly random client is forced
+    in. The Bernoulli draw and the fallback index use independent subkeys.
+    The draw compares in float64 and the fallback index is int64: the
+    reference's dtypes under ``jax_enable_x64``, the setting of its
+    tests."""
+    k_draw, k_fallback = prng.split(key)
+    m = prng.bernoulli(k_draw, rate, (n_clients,), torch.float64)
+    if bool(m.any()):
+        return m
+    first = int(prng.randint(k_fallback, (), 0, n_clients, torch.int64))
+    return torch.arange(n_clients) == first
 
 
 def masked_client_mean(tree, mask: torch.Tensor, *, keepdims: bool = True):
@@ -55,6 +99,94 @@ def masked_client_mean(tree, mask: torch.Tensor, *, keepdims: bool = True):
     return tree_map(mean_leaf, tree)
 
 
+def select_clients(new, old, mask: torch.Tensor, n_clients: int):
+    """Per-client select between two same-structure trees: tensors with a
+    leading ``n_clients`` axis take ``new`` where the mask is set and
+    ``old`` elsewhere; everything else (the step counter) takes ``new``."""
+
+    def sel(n, o):
+        if isinstance(n, torch.Tensor) and n.dim() >= 1 \
+                and n.shape[0] == n_clients:
+            return torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)),
+                               n, o)
+        return n
+
+    return tree_map(sel, new, old)
+
+
+# ---------------------------------------------------------------- transforms
+#: domain-separation tag folded into compression keys so they never collide
+#: with the participation-mask key schedule (both default to seed=0).
+_COMPRESS_KEY_TAG = 0x7A11A5
+
+
+def compression_key(seed: int, index: int, step: int):
+    """``fold_in(fold_in(key(seed), TAG + index), int32(step))``: the
+    reference's per-round compression key (``step`` -1 at the warm-up
+    aggregation folds in as ``0xFFFFFFFF``)."""
+    return prng.fold_in(prng.fold_in(prng.key(seed),
+                                     _COMPRESS_KEY_TAG + index), step)
+
+
+@dataclasses.dataclass(frozen=True)
+class MessageCompression:
+    """Message transform adapting a ``core/compressors.py`` compressor into
+    the engine's message path.
+
+    Owns the per-round PRNG schedule for stochastic compressors: the key is
+    ``fold_in(fold_in(key(seed), TAG + index), step)`` where ``step`` is
+    the state's step counter at round entry (advanced by exactly ``tau``
+    per round, -1 at the warm-up aggregation): a fresh key every round,
+    never shared with the participation schedule. Randomness is shared
+    across clients."""
+
+    compressor: Any
+    seed: int = 0
+    #: position in the algorithm's transform stack, folded into the key.
+    index: int = 0
+
+    @property
+    def up_frac(self) -> float:
+        return self.compressor.up_frac
+
+    @property
+    def bits_per_coord(self) -> float:
+        return self.compressor.bits_per_coord
+
+    @property
+    def keep_frac(self) -> float:
+        return self.compressor.keep_frac
+
+    @property
+    def index_bits(self) -> float:
+        return self.compressor.index_bits
+
+    @property
+    def value_bits(self) -> float | None:
+        return self.compressor.value_bits
+
+    @property
+    def unbiased(self) -> bool:
+        return getattr(self.compressor, "unbiased", False)
+
+    def init_extra(self, msg_like):
+        return self.compressor.init_extra(msg_like)
+
+    def apply(self, msg, extra, step: int):
+        key = (compression_key(self.seed, self.index, step)
+               if self.compressor.requires_key else None)
+        return self.compressor.apply(key, msg, extra)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientSampling:
+    """Per-round Bernoulli client participation policy."""
+
+    rate: float
+    seed: int = 0
+
+
+# --------------------------------------------------------------------- engine
 @dataclasses.dataclass(frozen=True)
 class RoundEngine:
     """Shared round driver; algorithms subclass it and implement the hooks.
@@ -65,10 +197,13 @@ class RoundEngine:
     int) that a round advances by exactly ``tau``."""
 
     transforms: tuple = dataclasses.field(default=(), kw_only=True)
-    sampling: Any | None = dataclasses.field(default=None, kw_only=True)
+    sampling: ClientSampling | None = dataclasses.field(default=None,
+                                                        kw_only=True)
     delay: Any | None = dataclasses.field(default=None, kw_only=True)
     topology: Any | None = dataclasses.field(default=None, kw_only=True)
     cohort: Any | None = dataclasses.field(default=None, kw_only=True)
+    #: pack the model tree into the contiguous [rows, 1024] parameter arena
+    #: (core/arena.py); attach via ``with_arena``.
     arena: bool = dataclasses.field(default=False, kw_only=True)
     telemetry: Any | None = dataclasses.field(default=None, kw_only=True)
     spmd_client_axes: tuple = dataclasses.field(default=(), kw_only=True)
@@ -98,43 +233,265 @@ class RoundEngine:
     def server_aggregate(self, state, msg, msg_bar, mctx, rctx):
         raise NotImplementedError
 
+    def _fused_tail(self, inner, msg, mctx, extras, step, mask):
+        """Optional whole-round-tail fusion hook, consulted by
+        ``_comm_step`` on plain synchronous arena rounds. A spec that can
+        run transform -> reduce -> ``server_aggregate`` as one fused pass
+        over its packed message returns ``(new_inner, new_extras)``;
+        ``None`` falls through to the generic seam."""
+        del inner, msg, mctx, extras, step, mask
+        return None
+
+    def message_like(self, inner):
+        """A tree shaped like the wire message of ``inner``. The reference
+        shapes transform memory with ``jax.eval_shape`` of ``message``;
+        torch has none, and a real message costs a gradient evaluation. A
+        spec's message has the shape of its parameters (FedCET's ``v`` is
+        shaped like ``x``), as the reference's ``launch/train.py:131``
+        (``abstract_state``) also assumes."""
+        return self.client_params_of(inner)
+
+    def client_params_of(self, inner):
+        """The stacked parameters of a spec state (``inner.x``)."""
+        return inner.x
+
     def client_params(self, state):
-        """Stacked [clients, ...] model parameters (default: ``state.x``)."""
-        return state.x
+        """Stacked [clients, ...] model parameters, unpacked from the arena
+        when the state carries one."""
+        x = self.client_params_of(self._inner(state))
+        return ar.unpack(x) if isinstance(x, ar.Arena) else x
 
     def global_params(self, state):
         return tree_client_mean(self.client_params(state), keepdims=False)
 
+    # ------------------------------------------------------------ accounting
+    @property
+    def up_frac(self) -> float:
+        """Effective uplink bytes fraction after message transforms."""
+        frac = 1.0
+        for t in self.transforms:
+            frac *= getattr(t, "up_frac", 1.0)
+        return frac
+
+    def _transforms_bits(self, bits: float = 32.0) -> float:
+        """Fold the attached transforms' bit-true cost onto a dense width,
+        composing stacked transforms through their (keep_frac, index_bits,
+        value_bits) triple, first-narrowest value width wins."""
+        keep, idx, value = 1.0, 0.0, bits
+        for t in self.transforms:
+            keep *= t.keep_frac
+            idx += keep * t.index_bits
+            if t.value_bits is not None:
+                value = min(value, t.value_bits)
+        return keep * value + idx
+
+    @property
+    def bits_per_coord(self) -> float:
+        """Bit-true average wire bits per model coordinate per UP vector
+        (32.0 when dense)."""
+        return self._transforms_bits(32.0)
+
+    def message_leaf_bits(self, leaf_info):
+        """EXACT per-leaf uplink wire bits for one client's one UP vector,
+        given the message leaf decomposition ``[(name, n_coords), ...]``
+        (``core/comm.py:leaf_info_of``). Never inspects the arena: the
+        decomposition comes from the unpacked parameters either way."""
+        from repro_torch.core.compressors import stack_wire_bits
+
+        stack = [t.compressor for t in self.transforms]
+        return [stack_wire_bits(stack, i, nm, int(n))
+                for i, (nm, n) in enumerate(leaf_info)]
+
+    @property
+    def down_frac(self) -> float:
+        return 1.0
+
+    @property
+    def transmit_frac(self) -> float:
+        """Expected fraction of rounds a client's uplink lands: the
+        sampling rate (1.0 synchronous, full participation). Ignores the
+        non-empty-mask fallback's tiny upward correction."""
+        return 1.0 if self.sampling is None else min(self.sampling.rate, 1.0)
+
+    @property
+    def receive_frac(self) -> float:
+        """Expected fraction of rounds a client RECEIVES the downlink: the
+        server broadcasts to present clients only."""
+        return 1.0 if self.sampling is None else min(self.sampling.rate, 1.0)
+
+    # ------------------------------------------------------- state wrapping
+    @property
+    def _wrapped(self) -> bool:
+        return bool(self.transforms)
+
+    def _wrap(self, inner, extras):
+        return EngineState(inner, tuple(extras)) if self._wrapped else inner
+
+    def _split(self, state):
+        """-> (inner, transform extras)."""
+        if not self._wrapped:
+            return state, ()
+        return state.inner, state.extras
+
+    def _inner(self, state):
+        return state.inner if self._wrapped else state
+
     # ------------------------------------------------------------- plumbing
-    def _comm_step(self, gf, inner, batch, rctx, agg):
-        """The single aggregating step: message -> reduce -> apply."""
+    def _grad(self, grad_fn: GradFn) -> GradFn:
+        gf = vmap_grads(grad_fn)
+        if not self.arena:
+            return gf
+
+        # the model-apply boundary: the loss sees the real tree (views of
+        # the arena), the engine sees the arena; the repack is the one
+        # copy per call.
+        def arena_gf(x, batch):
+            if not isinstance(x, ar.Arena):
+                return gf(x, batch)
+            return ar.pack(gf(ar.unpack(x), batch), x.layout)
+
+        return arena_gf
+
+    def _init_extras(self, inner) -> tuple:
+        """Per-transform extra state, shaped like the wire message."""
+        if not self.transforms:
+            return ()
+        like = self.message_like(inner)
+        return tuple(t.init_extra(like) for t in self.transforms)
+
+    def _comm_step(self, gf, inner, extras, batch, rctx, agg, step,
+                   mask=None):
+        """The single aggregating step: message -> transforms -> reduce ->
+        apply. ``step`` is the state's step counter at round entry (keys
+        the stochastic transforms). On arena rounds the spec's fused tail
+        may take the whole seam. Returns ``(inner, extras)``."""
         msg, mctx = self.message(gf, inner, batch, rctx)
-        return self.server_aggregate(inner, msg, agg(msg), mctx, rctx)
+        if self.arena:
+            fused = self._fused_tail(inner, msg, mctx, extras, step, mask)
+            if fused is not None:
+                inner, new_extras = fused
+                return inner, tuple(new_extras)
+        new_extras = []
+        for t, e in zip(self.transforms, extras):
+            msg, e = t.apply(msg, e, step)
+            new_extras.append(e)
+        inner = self.server_aggregate(inner, msg, agg(msg), mctx, rctx)
+        return inner, tuple(new_extras)
+
+    def _aggregator(self, mask):
+        """The round's cross-client reduction: the star mean, or the
+        present-clients mean under sampling."""
+        if mask is not None:
+            return lambda tr: masked_client_mean(tr, mask)
+        return tree_client_mean
+
+    def _mask(self, step: int, like: torch.Tensor):
+        """The round's participation mask on ``like``'s device, or None."""
+        if self.sampling is None:
+            return None
+        key = prng.fold_in(prng.key(self.sampling.seed), step)
+        return participation_mask(key, self.n_clients,
+                                  self.sampling.rate).to(like.device)
 
     # -------------------------------------------------------------- protocol
     def init(self, grad_fn: GradFn, x0, init_batch):
         """Replicate-and-warm-up, plus one aggregating step if the spec's
-        warm-up requests it."""
-        gf = vmap_grads(grad_fn)
+        warm-up requests it. Client sampling never applies at init (the
+        paper's full-participation initialization)."""
+        gf = self._grad(grad_fn)
+        if self.arena and not isinstance(x0, ar.Arena):
+            # every state, message and transform-memory tree the spec builds
+            # from x0 is arena-valued from here on.
+            x0 = ar.pack(x0)
         inner, run_comm = self.init_warmup(gf, x0, init_batch)
+        extras = self._init_extras(inner)
         if run_comm:
-            inner = self._comm_step(gf, inner, init_batch, None,
-                                    tree_client_mean)
-        return inner
+            inner, extras = self._comm_step(gf, inner, extras, init_batch,
+                                            None, tree_client_mean,
+                                            step=inner.t)
+        return self._wrap(inner, extras)
 
     def round(self, grad_fn: GradFn, state, batches):
         """One communication round: optional round-start exchange, tau-1
         local steps, one aggregating step. ``batches`` leaves have leading
         ``[tau, clients, ...]`` axes."""
-        gf = vmap_grads(grad_fn)
-        agg = tree_client_mean
+        gf = self._grad(grad_fn)
+        inner, extras = self._split(state)
+        step0 = inner.t  # round-entry counter: keys masks AND compressors
+        mask = self._mask(step0, tree_leaves(self.message_like(inner))[0])
+        agg = self._aggregator(mask)
+        frozen_inner, frozen_extras = inner, extras
         inner, rctx = self.begin_round(
-            gf, state, tree_map(lambda b: b[0], batches), agg)
+            gf, inner, tree_map(lambda b: b[0], batches), agg)
         for k in range(self.tau - 1):
             inner = self.local_step(gf, inner,
                                     tree_map(lambda b: b[k], batches), rctx)
         last_b = tree_map(lambda b: b[self.tau - 1], batches)
-        return self._comm_step(gf, inner, last_b, rctx, agg)
+        inner, extras = self._comm_step(gf, inner, extras, last_b, rctx, agg,
+                                        step=step0, mask=mask)
+        if mask is not None:
+            # absent clients keep their pre-round state entirely.
+            inner = select_clients(inner, frozen_inner, mask, self.n_clients)
+            extras = tuple(select_clients(e, fe, mask, self.n_clients)
+                           for e, fe in zip(extras, frozen_extras))
+        return self._wrap(inner, extras)
+
+
+# ------------------------------------------------------- transform factories
+def with_participation(algo: RoundEngine, rate: float,
+                       seed: int = 0) -> RoundEngine:
+    """Per-round Bernoulli client sampling for ANY engine algorithm.
+    ``rate >= 1.0`` is an exact no-op (returns ``algo`` unchanged)."""
+    if rate >= 1.0:
+        return algo
+    return dataclasses.replace(algo, sampling=ClientSampling(rate=rate,
+                                                             seed=seed))
+
+
+def with_compression(algo: RoundEngine, *, k_frac: float = 1.0,
+                     quantize: bool = False,
+                     error_feedback: bool | None = None,
+                     compressor=None, seed: int = 0) -> RoundEngine:
+    """Compressed uplink for ANY engine algorithm's message path, in the
+    ``compressor=`` form: a ``core/compressors.py`` Compressor or spec
+    string (``"shift:q8"``, ``"q8"``, ``"pq8"``). ``error_feedback=None``
+    leaves unbiased compressors bare (the reference's auto policy). The
+    legacy ``k_frac=`` / ``quantize=`` form (top-k + bf16 under error
+    feedback) comes with a later slice and raises; at its identity setting
+    it is the reference's exact no-op. Transforms stack: the last one
+    attached compresses the output of the previous one."""
+    if compressor is not None:
+        if k_frac < 1.0 or quantize:
+            raise ValueError(
+                "pass EITHER compressor= or the legacy k_frac=/quantize= "
+                f"kwargs, not both: compressor={compressor!r}, "
+                f"k_frac={k_frac}, quantize={quantize}")
+        from repro_torch.core.compressors import auto_wrap, from_spec
+
+        comp = from_spec(compressor)
+        if comp is None:  # the "none" spec: exact no-op
+            return algo
+        comp = auto_wrap(comp, error_feedback)
+        t = MessageCompression(comp, seed=seed, index=len(algo.transforms))
+        return dataclasses.replace(algo, transforms=algo.transforms + (t,))
+    if k_frac >= 1.0 and not quantize:
+        return algo
+    raise NotImplementedError(
+        "with_compression(k_frac=/quantize=) (the legacy top-k + bf16 "
+        "error-feedback transform) is not yet ported to PyTorch: it comes "
+        "with a later slice of the port (ROADMAP Queue 1 item 6); pass "
+        "compressor= instead")
+
+
+def with_arena(algo: RoundEngine, enable: bool = True) -> RoundEngine:
+    """Packed-parameter-arena execution for ANY engine algorithm: ``init``
+    flattens the model tree once into the ``[rows, 1024]`` buffer of
+    core/arena.py, and every state / message / transform-memory tree stays
+    packed, unpacked only at the gradient boundary. ``enable=False`` is an
+    exact no-op."""
+    if not enable:
+        return algo
+    return dataclasses.replace(algo, arena=True)
 
 
 # --------------------------------------------------------- multi-round driver

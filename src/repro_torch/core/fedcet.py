@@ -13,7 +13,12 @@ of ``src/repro/core/fedcet.py``).
   Lemma 1.
 
 A communication round is ``tau - 1`` pure-local steps followed by one
-aggregating step.
+aggregating step. Under message compression the drift update uses the
+client's own compressed message (``msg`` in ``server_aggregate``) so
+``sum_i d_i = 0`` is preserved (Lemma 2), while the x-update corrects the
+exact local vector ``v`` carried in ``mctx``. On the packed arena with a
+``shift:q<b>`` uplink, :meth:`FedCET._fused_tail` runs the whole round tail
+as one kernel (``kernels/ops.py:fedcet_round_tail``).
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple
 
+import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import arena as ar
 from repro_torch.core.api import replicate
 from repro_torch.core.engine import RoundEngine
 from repro_torch.kernels import ops as kops
@@ -106,6 +113,57 @@ class FedCET(RoundEngine):
                           mctx, msg, msg_bar)
         return FedCETState(x=x_next, d=d_next, t=state.t + 1)
 
+    def _fused_tail(self, inner, msg, mctx, extras, step, mask):
+        """The fully fused arena round tail (engine hook; reference
+        ``core/fedcet.py:132-196``): when the transform stack is exactly
+        one shift-quantized compression with a client-shared dither over a
+        packed arena message, the quantize + dequantize + weighted reduce +
+        paired ``(d', x')`` update + DIANA shift step run as ONE kernel
+        visit per element (``kernels/ops.py:fedcet_round_tail``). Same PRNG
+        schedule, per-leaf segment-max scale and masked-mean ``w``/``den``
+        expressions as the generic seam; any other configuration returns
+        None and takes the generic path."""
+        if not self.use_fused_kernel or len(self.transforms) != 1:
+            return None
+        from repro_torch.core import compressors as C
+        from repro_torch.core.engine import MessageCompression, compression_key
+
+        t = self.transforms[0]
+        if not isinstance(t, MessageCompression):
+            return None
+        comp = t.compressor
+        if not (isinstance(comp, C.Shifted)
+                and isinstance(comp.inner, C.StochasticQuant)
+                and not comp.inner.per_client_dither):
+            return None
+        h = extras[0]
+        if not (isinstance(msg, ar.Arena) and isinstance(h, ar.Arena)
+                and msg.data.dim() == 3
+                and msg.layout.dtype in (torch.float32, torch.float64)):
+            return None
+        lo, va, ha, da = msg.layout, msg.data, h.data, inner.d.data
+        ft, dev, n = va.dtype, va.device, va.shape[0]
+        quant = comp.inner
+        levels = 2 ** (quant.bits - 1) - 1
+        # the per-leaf quantizer scale of the shifted RESIDUAL.
+        scale = C.arena_scale(va - ha, lo, levels)
+        # MessageCompression's round key, then the per-leaf dither draws in
+        # flatten (== layout) order: bit-identical to the generic path.
+        u = quant.arena_dither(compression_key(t.seed, t.index, step), lo,
+                               n, dev)
+        if mask is None:
+            w = torch.ones((n, 1), dtype=ft, device=dev)
+            den = torch.full((1, 1), n, dtype=ft, device=dev)
+        else:  # the exact masked_client_mean expressions
+            w = mask.to(ft).reshape(n, 1)
+            den = torch.clamp(mask.to(torch.int64).sum(), min=1).to(
+                ft).reshape(1, 1)
+        d2, x2, h2 = kops.fedcet_round_tail(
+            va, ha, da, u, scale, w, den, c=self.c, alpha=self.alpha,
+            beta=comp.step, bits=quant.bits)
+        inner = FedCETState(x=ar.Arena(x2, lo), d=ar.Arena(d2, lo),
+                            t=inner.t + 1)
+        return inner, (ar.Arena(h2, lo),)
 
 class FedCETLiteralState(NamedTuple):
     x_curr: Any  # x(t)
@@ -156,8 +214,8 @@ class FedCETLiteral(RoundEngine):
         return FedCETLiteralState(x_curr=x_next, x_prev=state.x_curr,
                                   g_prev=mctx, t=state.t + 1)
 
-    def client_params(self, state):
-        return state.x_curr
+    def client_params_of(self, inner):
+        return inner.x_curr
 
 
 def max_weight_c(mu: float, alpha: float) -> float:

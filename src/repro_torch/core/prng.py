@@ -1,0 +1,148 @@
+"""The subset of ``jax.random`` the core uses, bit for bit (port of
+``jax/_src/prng.py`` and ``jax/_src/random.py`` as of jax 0.9, threefry2x32
+with ``jax_threefry_partitionable`` on, the default).
+
+A key is a pair of 32-bit words held as two Python ints: the key schedule
+(``key``, ``fold_in``, ``split``) is a handful of hashes on scalars and
+runs on the host, so deriving a round's keys launches nothing on the card.
+The bulk draws (``uniform``, ``bernoulli``, ``randint``) run threefry2x32
+over torch integer tensors on the requested device. ``uint32`` has too
+few kernels in torch, so words live in ``int64`` masked to 32 bits:
+sums and rotations of values below 2**32 cannot overflow there.
+
+The same arithmetic runs on ints and on tensors (``+``, ``^``, ``&``,
+``<<``, ``>>``), so the one ``threefry2x32`` below serves both.
+
+Bits as jax draws them (the traps, with their lines in jax's ``prng.py``):
+
+* ``key(seed)`` (``threefry_seed``, :802-829): the 64-bit seed's HIGH word
+  comes first.
+* ``fold_in(key, data)`` (:1163-1169) casts ``data`` to uint32 first (so
+  -1 folds in as ``0xFFFFFFFF``) and hashes the counter pair ``(0, data)``.
+* Random bits (:1184-1200) hash the hi and lo words of the row-major flat
+  index; 32-bit draws are ``bits1 ^ bits2``, 64-bit draws
+  ``(bits1 << 32) | bits2``.
+* ``uniform`` ORs the top mantissa bits into 1.0 and subtracts 1.0.
+* ``bernoulli(key, p)`` draws its uniform in the dtype of ``p``: float64
+  under ``jax_enable_x64`` (as the reference's tests run), float32
+  otherwise. Here the dtype is an explicit argument; so is ``randint``'s,
+  whose default in jax is int64 under x64 and int32 otherwise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Key = tuple  # (hi word, lo word), each an int in [0, 2**32)
+
+
+def _rotl(v, r: int):
+    return ((v << r) | (v >> (32 - r))) & MASK32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) of the counter pair ``(x0, x1)``
+    under the key ``(k0, k1)``: ``_threefry2x32_lowering`` of jax's
+    ``prng.py``. Operands are ints or int64 tensors holding 32-bit words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x0, x1
+
+
+def key(seed: int) -> Key:
+    """``jax.random.key(seed)``'s key data for a 64-bit integer seed."""
+    seed &= (1 << 64) - 1
+    return (seed >> 32, seed & MASK32)
+
+
+def fold_in(k: Key, data: int) -> Key:
+    """``jax.random.fold_in(k, data)``: ``data`` wraps to uint32 first."""
+    return threefry2x32(k[0], k[1], 0, int(data) & MASK32)
+
+
+def split(k: Key, num: int = 2) -> list:
+    """``jax.random.split(k, num)`` as a list of ``num`` keys."""
+    return [threefry2x32(k[0], k[1], 0, i) for i in range(num)]
+
+
+def _counters(shape, device):
+    """Hi and lo words of the row-major flat index (``iota_2x32_shape``)."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return idx >> 32, idx & MASK32
+
+
+def random_bits(k: Key, bit_width: int, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits``-style draws of 32 or 64 bits, as int64 words of
+    ``shape`` (64-bit draws come back as the pair ``(hi, lo)``)."""
+    shape = tuple(shape)
+    hi, lo = _counters(shape, device)
+    b1, b2 = threefry2x32(k[0], k[1], hi, lo)
+    if bit_width == 32:
+        return (b1 ^ b2).reshape(shape)
+    if bit_width == 64:
+        return b1.reshape(shape), b2.reshape(shape)
+    raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
+
+
+def uniform(k: Key, shape=(), dtype=torch.float32,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, dtype)`` on ``[0, 1)``."""
+    shape = tuple(shape)
+    if dtype == torch.float32:
+        bits = random_bits(k, 32, shape, device)
+        fbits = (bits >> 9) | 0x3F800000          # 23 mantissa bits, 1.0
+        return fbits.to(torch.int32).view(torch.float32) - 1.0
+    if dtype == torch.float64:
+        b1, b2 = random_bits(k, 64, shape, device)
+        # the 64-bit draw >> 12, OR'd into 1.0's bits 0x3FF0000000000000
+        fbits = (b1 << 20) | (b2 >> 12) | 0x3FF0000000000000
+        return fbits.view(torch.float64) - 1.0
+    raise TypeError(f"uniform: float32 or float64 only, got {dtype}")
+
+
+def bernoulli(k: Key, p: float, shape=(), dtype=torch.float64,
+              device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)`` with ``p`` of dtype ``dtype``
+    (float64 is what a Python float becomes under ``jax_enable_x64``)."""
+    u = uniform(k, shape, dtype, device)
+    return u < torch.tensor(p, dtype=dtype, device=u.device)
+
+
+def randint(k: Key, shape, minval: int, maxval: int, dtype=torch.int64,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval, dtype)`` for int32
+    and int64 (``_randint``: two draws, the high one reduced through
+    ``2**nbits mod span``). ``maxval`` must not exceed the dtype's range."""
+    nbits = {torch.int32: 32, torch.int64: 64}[dtype]
+    k1, k2 = split(k)
+    span = maxval - minval if maxval > minval else 1
+    mult = pow(2, nbits // 2, span)
+    mult = (mult * mult) % span
+    if nbits == 32:
+        hi = random_bits(k1, 32, shape, device)
+        lo = random_bits(k2, 32, shape, device)
+    else:  # reduce the 64-bit words mod span without leaving int64
+        hi = _mod64(*random_bits(k1, 64, shape, device), span)
+        lo = _mod64(*random_bits(k2, 64, shape, device), span)
+    off = ((hi % span) * mult + lo % span) % span
+    return (minval + off).to(dtype)
+
+
+def _mod64(w_hi: torch.Tensor, w_lo: torch.Tensor, span: int) -> torch.Tensor:
+    """``(w_hi * 2**32 + w_lo) % span`` for span < 2**31, in int64."""
+    if not 0 < span < 2 ** 31:
+        raise ValueError(f"randint span must be in (0, 2**31), got {span}")
+    return ((w_hi % span) * (2 ** 32 % span) + w_lo % span) % span

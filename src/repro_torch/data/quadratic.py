@@ -80,3 +80,20 @@ def make_quadratic_problem(seed: int = 0, *, n_clients: int = 10,
                     dtype=dtype, device=device) * (2 * spread) - spread)
     m = torch.ones((n_clients, dim), dtype=dtype, device=device)
     return QuadraticProblem(b=b, m=m)
+
+
+def make_hetero_hessian_problem(seed: int = 0, *, n_clients: int = 10,
+                                n_measurements: int = 10, dim: int = 60,
+                                spread: float = 10.0, m_low: float = 0.5,
+                                m_high: float = 1.5, dtype=torch.float64,
+                                device="cpu") -> QuadraticProblem:
+    """Heterogeneous-Hessian variant (reference ``data/quadratic.py:95``):
+    M_i = diag(m_i), m_i ~ U[m_low, m_high]. Exhibits genuine FedAvg
+    client drift. Drawn with a ``torch.Generator``, like
+    :func:`make_quadratic_problem`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b = (torch.rand((n_clients, n_measurements, dim), generator=gen,
+                    dtype=dtype, device=device) * (2 * spread) - spread)
+    m = (torch.rand((n_clients, dim), generator=gen, dtype=dtype,
+                    device=device) * (m_high - m_low) + m_low)
+    return QuadraticProblem(b=b, m=m)

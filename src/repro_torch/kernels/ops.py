@@ -1,5 +1,7 @@
-"""Public wrappers of the FedCET kernels (port of
-``src/repro/kernels/ops.py``: ``fedcet_v`` and ``fedcet_comm``).
+"""Public wrappers of the port's kernels (port of
+``src/repro/kernels/ops.py``: ``fedcet_v``, ``fedcet_comm``,
+``stochastic_quantize``, ``stochastic_quantize_rows`` and
+``fedcet_round_tail``).
 
 ``impl`` selects the implementation:
 
@@ -10,7 +12,8 @@
 * ``"ref"``: the plain version, on any device.
 
 Unlike the reference's TPU wrappers there is no ``[rows, 1024]`` tiling or
-padding: the CUDA kernels work on the flat leaf.
+padding, and no broadcast operand is materialized: the CUDA kernels work
+on the flat leaf and broadcast the shared operand themselves.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import fedcet_update as K
+from repro_torch.kernels import quantize as KQ
 from repro_torch.kernels import ref as R
 
 
@@ -46,3 +50,41 @@ def fedcet_comm(d, m, m_bar, c: float, alpha: float, v=None,
     if _use_kernel(impl, m):
         return K.fedcet_comm(d, m, m_bar, c, alpha, v=v)
     return R.fedcet_comm(d, m, m_bar, c, alpha, v=v)
+
+
+def stochastic_quantize(a, u, scale, bits: int, impl: str = "auto"):
+    """Fused dithered-quantize round-trip over a stacked ``[C, ...]`` leaf
+    (see kernels/ref.py:stochastic_quantize). ``u`` is the dither, of the
+    leaf's coordinate shape (client-shared) or of ``a``'s shape;
+    ``scale`` the per-leaf step as a one-element tensor."""
+    if _use_kernel(impl, a):
+        return KQ.stochastic_quantize(a, u, scale, bits)
+    return R.stochastic_quantize(a, u, scale, bits)
+
+
+def stochastic_quantize_rows(a, u, scale_rows, bits: int, impl: str = "auto"):
+    """Row-scale dithered-quantize round-trip over the packed arena
+    ``[C, rows, 1024]`` (see kernels/ref.py:stochastic_quantize_rows);
+    ``u`` is ``[rows, 1024]`` or ``a``'s shape, ``scale_rows`` one step per
+    row."""
+    if _use_kernel(impl, a):
+        return KQ.stochastic_quantize_rows(a, u, scale_rows, bits)
+    return R.stochastic_quantize_rows(a, u, scale_rows, bits)
+
+
+def fedcet_round_tail(v, h, d, u, scale, w, den, *, c: float, alpha: float,
+                      beta: float, bits: int, impl: str = "auto"):
+    """The fused shift-compressed FedCET round tail (see
+    kernels/ref.py:fedcet_round_tail): dithered-quantize the shifted
+    residual, reconstruct the wire message, weighted-reduce it across
+    clients and apply the paired ``(d', x')`` update plus the DIANA shift
+    step, one kernel visit per element on the card.
+
+    Shapes: ``v``/``h``/``d`` [clients, rows, 1024]; ``u`` [rows, 1024];
+    ``scale`` one step per row; ``w`` the clients' weights; ``den`` one
+    element. Returns ``(d', x', h')``."""
+    if _use_kernel(impl, v):
+        return K.fedcet_round_tail(v, h, d, u, scale, w, den, c=c,
+                                   alpha=alpha, beta=beta, bits=bits)
+    return R.fedcet_round_tail(v, h, d, u, scale, w, den, c=c, alpha=alpha,
+                               beta=beta, bits=bits)

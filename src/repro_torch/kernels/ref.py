@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the FedCET kernels (port of
-``src/repro/kernels/ref.py:8-26``), term for term: the CPU path of
+"""Plain PyTorch versions of the port's kernels (port of
+``src/repro/kernels/ref.py:8-59, 79-89``), term for term: the CPU path of
 ``kernels/ops.py`` and the yardstick the CUDA kernels are held against."""
 
 from __future__ import annotations
+
+import torch
 
 
 def fedcet_v(x, g, d, alpha: float):
@@ -24,3 +26,62 @@ def fedcet_comm(d, m, m_bar, c: float, alpha: float, v=None):
         v = m
     delta = m - m_bar
     return d + c * delta, v - (c * alpha) * delta
+
+
+def fedcet_round_tail(v, h, d, u, scale, w, den, *, c: float, alpha: float,
+                      beta: float, bits: int):
+    """The whole shift:q8 -> reduce -> FedCET pair round tail, one pass.
+
+    With ``h`` the shift memory and ``q`` the dithered fixed-point code of
+    the residual ``v - h``::
+
+        q     = clip(floor((v - h)/scale + u), -levels, levels)
+        recon = h + q*scale                    # the wire message
+        m_bar = sum_c(recon * w) / den         # (masked) client mean
+        d'    = d + c*(recon - m_bar)
+        x'    = v - c*alpha*(recon - m_bar)
+        h'    = h + beta*q*scale               # the DIANA shift step
+
+    Shapes: ``v``/``h``/``d`` ``[clients, rows, lanes]``; ``u`` the
+    client-shared dither ``[rows, lanes]``; ``scale`` one step per row
+    (``[rows, 1]`` or ``[rows]``); ``w`` the ``clients`` weights (ones, or
+    the participation mask) and ``den`` their one-element denominator.
+
+    One change from the reference: the client sum runs in a FIXED
+    sequential order, ``acc = recon[0]*w[0]``, then ``acc + recon[c]*w[c]``
+    for c = 1, 2, ..., and only then ``/ den``. The CUDA kernel sums in the
+    same order, so the card check holds a tolerance of 0. Returns
+    ``(d', x', h')``."""
+    levels = 2 ** (bits - 1) - 1
+    scale = scale.reshape(-1, 1)
+    inv = torch.where(scale > 0, 1.0 / scale, 0.0)
+    q = torch.clamp(torch.floor((v - h) * inv + u), -levels, levels)
+    qs = q * scale
+    recon = h + qs
+    w = w.reshape(-1)
+    acc = recon[0] * w[0]
+    for k in range(1, recon.shape[0]):
+        acc = acc + recon[k] * w[k]
+    m_bar = (acc / den.reshape(()))[None]
+    delta = recon - m_bar
+    return d + c * delta, v - (c * alpha) * delta, h + beta * qs
+
+
+def stochastic_quantize(a, u, scale, bits: int):
+    """Dithered fixed-point quantize round-trip.
+
+    ``u ~ U[0,1)`` dither (broadcast against ``a``), ``scale`` = per-leaf
+    step (max|a| / levels, a tensor):
+    ``out = scale * clip(floor(a/scale + u), -levels, levels)``; unbiased
+    because ``E_u[floor(v + u)] = v``. ``scale == 0`` maps everything to 0.
+    """
+    levels = 2 ** (bits - 1) - 1
+    inv = torch.where(scale > 0, 1.0 / scale, 0.0)
+    q = torch.clamp(torch.floor(a * inv + u), -levels, levels)
+    return q * scale
+
+
+def stochastic_quantize_rows(a, u, scale_rows, bits: int):
+    """The row-scale form over the packed arena ``[..., rows, lanes]``:
+    ``scale_rows`` holds one step per row."""
+    return stochastic_quantize(a, u, scale_rows.reshape(-1, 1), bits)

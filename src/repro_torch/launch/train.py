@@ -5,16 +5,20 @@ FedCET (Algorithm 2) on a real model: every client holds a replica and a
 heterogeneous token stream, takes ``tau - 1`` local steps and one
 aggregating step per round, and the FedCET update runs through the
 port's CUDA kernels on the card. It prints the reference's per-round
-lines (``round … loss … bits_up … active_clients …``).
+lines (``round … loss … bits_up … active_clients …``), with ``bits_up``
+billed bit-true from the attached compressor (``core/comm.py``).
 
-The slice runs the synchronous star round only: every scenario option of
-the reference (compression, participation, delay, topology, cohort,
-arena, telemetry, tracing, checkpoints) raises "not yet ported" when set
-to anything but its default. The mesh launcher (``make_plan``,
-``lower_train_step``) waits for a multi-GPU slice.
+The synchronous star round takes three scenario options of the
+reference: ``compression`` (a ``core/compressors.py`` spec: ``shift:q8``,
+``q8``, ``pq8``), ``participation`` and ``arena``, composed by
+``configs/base.py:FedScenario``. The others (delay, topology, cohort,
+compression plans, telemetry, tracing, checkpoints) raise "not yet
+ported" when set to anything but their default. The mesh launcher
+(``make_plan``, ``lower_train_step``) waits for a multi-GPU slice.
 
 Run as a script:
-    python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5
+    python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
+        --compression shift:q8 --arena
 """
 
 from __future__ import annotations
@@ -25,14 +29,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.core.api import comm_bytes_per_round
+from repro_torch.configs.base import FedScenario
+from repro_torch.core.comm import comm_bits_per_round, leaf_info_of
 from repro_torch.core.fedcet import FedCET
 from repro_torch.data.synthetic import make_hetero_lm_dataset
 from repro_torch.models import build_model
 from repro_torch.utils.tree import tree_map, tree_num_params
 
-#: the reference's scenario options and their defaults; this slice runs
-#: the defaults only.
+#: the reference's scenario options and their defaults.
 SCENARIO_DEFAULTS = {
     "compression": "none", "compression_plan": "none", "plan_adapt": 0.0,
     "participation": 1.0, "delay": "none", "stale_policy": "last",
@@ -40,6 +44,8 @@ SCENARIO_DEFAULTS = {
     "arena": False, "telemetry": None, "trace_rounds": None,
     "ckpt_dir": None,
 }
+#: the options this slice runs; the others accept their default only.
+PORTED = ("compression", "participation", "arena")
 
 
 def run_training(arch: str, *, steps: int = 100, tau: int = 2,
@@ -51,19 +57,26 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     """End-to-end FedCET LM training on ``device`` (``cuda`` unless the
     caller passes another; with no card and no explicit device it raises).
 
+    ``scenario`` takes ``compression``, ``participation`` and ``arena``
+    (see the module docstring); the reference's other options raise
+    "not yet ported" unless at their default.
+
     Returns the history ``{"round", "loss", "comm_bytes", "seconds"}`` of
     the logged rounds (every ``log_every``-th and the last) and the model's
     ``n_params``: ``loss`` is the mean client loss on the round's first
-    batch after the round, as in the reference; ``seconds`` is the round's
-    host-clock time, measured after the device has finished it. ``callback(round, loss, comm_bytes,
-    state)`` runs after each logged round."""
+    batch after the round, as in the reference; ``comm_bytes`` the
+    cumulative bit-true bytes up and down; ``seconds`` the round's
+    host-clock time, measured after the device has finished it.
+    ``callback(round, loss, comm_bytes, state)`` runs after each logged
+    round."""
     for k, v in scenario.items():
         if k not in SCENARIO_DEFAULTS:
             raise TypeError(f"run_training() got an unexpected option {k!r}")
-        if v != SCENARIO_DEFAULTS[k]:
+        if k not in PORTED and v != SCENARIO_DEFAULTS[k]:
             raise NotImplementedError(
                 f"{k}={v!r} is not yet ported to PyTorch (this slice runs "
                 f"the synchronous star round: {k}={SCENARIO_DEFAULTS[k]!r})")
+    ported = {k: scenario.get(k, SCENARIO_DEFAULTS[k]) for k in PORTED}
     device = resolve_device(device)
     if device.type == "cuda":
         # full-float32 matmuls: what the reference computes on its CPU path.
@@ -76,7 +89,8 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed),
                         device=device)
-    algo = FedCET(alpha=alpha, c=c, tau=tau, n_clients=n_clients)
+    algo = FedScenario(**ported, seed=seed).apply(
+        FedCET(alpha=alpha, c=c, tau=tau, n_clients=n_clients))
     ds = make_hetero_lm_dataset(cfg.vocab_size, n_clients, seq_len, batch,
                                 heterogeneity=heterogeneity, seed=seed,
                                 device=device)
@@ -89,8 +103,12 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     state = algo.init(grad_fn, params,
                       tree_map(lambda b: b[0], batches_for(0)))
     n_params = tree_num_params(params)
-    per_round = comm_bytes_per_round(algo, n_params, 4, n_clients)
-    up_bits = 8 * per_round["up"]
+    bits = comm_bits_per_round(algo, n_params, n_clients,
+                               leaf_info_of(params))
+    bytes_per_round = int(bits["up_bits"] / 8) + int(bits["down_bits"] / 8)
+    # the expected participant count, as the reference prints without
+    # telemetry.
+    active = int(round(n_clients * min(ported["participation"], 1.0)))
 
     history = {"round": [], "loss": [], "comm_bytes": [], "seconds": [],
                "n_params": n_params}
@@ -107,9 +125,9 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
                 tree_map(lambda a: a[0], b))))
         if r % log_every == 0 or r == steps - 1:
             print(f"round {r:5d}  loss {loss:.4f}  "
-                  f"bits_up {(r + 1) * up_bits:.4g}  "
-                  f"active_clients {n_clients}")
-            comm = (r + 1) * per_round["total"]
+                  f"bits_up {(r + 1) * bits['up_bits']:.4g}  "
+                  f"active_clients {active}")
+            comm = (r + 1) * bytes_per_round
             history["round"].append(r)
             history["loss"].append(loss)
             history["comm_bytes"].append(comm)
@@ -142,7 +160,17 @@ def main(argv=None):
                          "default raises instead of falling back")
     ap.add_argument("--log-every", type=int, default=10,
                     help="print a per-round summary line every k rounds")
+    ap.add_argument("--compression", default="none",
+                    help="uplink compressor spec: none | q8 | pq8 | shift:q8")
+    ap.add_argument("--participation", type=float, default=1.0,
+                    help="per-round Bernoulli client participation rate")
+    ap.add_argument("--arena", action="store_true",
+                    help="pack the client store into the contiguous "
+                         "[clients, rows, 1024] parameter arena (fused "
+                         "round tail under shift:q<b>)")
     for k, v in SCENARIO_DEFAULTS.items():
+        if k in PORTED:
+            continue
         ap.add_argument("--" + k.replace("_", "-"), default=v,
                         type=type(v) if v is not None else None,
                         help="not yet ported: only the default is accepted")

@@ -1,14 +1,17 @@
-"""The port's FedCET kernels against the JAX package and against their own
-plain versions.
+"""The port's kernels against the JAX package and against their own plain
+versions: the FedCET triad and pair, the dithered quantizer (one scale per
+leaf, and one per arena row) and the fused round tail.
 
 CPU tests: the port's ``ops``/``ref`` (plain versions on a CPU tensor)
 against JAX's ``ref`` and JAX's ``ops`` with ``impl="kernel"`` (the Pallas
 kernels in interpret mode), on the same numpy inputs. Tolerance: 1e-6 in
 float32. In float64 the port equals JAX's ``ref`` exactly (both round each
-product and difference once); against the jitted Pallas kernel it holds
-within 4 ulps of the largest operand, because XLA's CPU compiler contracts
-``a*b - c`` into one fused multiply-add inside the kernel's fusion
-(measured: at most 1 ulp of the operand scale).
+product and difference once; the round tail's client sum runs in client
+order in both); against the jitted Pallas kernel it holds within 4 ulps of
+the largest operand, because XLA's CPU compiler contracts ``a*b - c`` into
+one fused multiply-add inside the kernel's fusion (measured: at most 2
+ulps of the operand scale). The quantizer's plain versions equal JAX's
+``ref`` exactly in both dtypes.
 
 Card tests (marker ``cuda``): each CUDA kernel against its plain version
 on the card. The kernels are built with ``--fmad=false``, so they round
@@ -107,11 +110,88 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert all(torch.equal(a, b) for a, b in
                zip(out, ref.fedcet_comm(d, x, x.mean(0, keepdim=True), C,
                                         ALPHA)))
-    assert K.LAUNCHES == {"fedcet_v": 0, "fedcet_comm": 0}
+    a, u = x.reshape(5, 9), g[0]
+    assert torch.equal(ops.stochastic_quantize(a, u, a.abs().max() / 127, 8),
+                       ref.stochastic_quantize(a, u, a.abs().max() / 127, 8))
+    assert set(K.LAUNCHES) == {"fedcet_v", "fedcet_comm", "fedcet_comm4",
+                               "stochastic_quantize",
+                               "stochastic_quantize_rows",
+                               "fedcet_round_tail"}
+    assert not any(K.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.fedcet_v(x, g, d, ALPHA, impl="kernel")
     with pytest.raises(ValueError, match="unknown impl"):
         ops.fedcet_v(x, g, d, ALPHA, impl="pallas")
+
+
+def _tail_inputs(clients, rows, dtype, lanes=1024, seed=0, zero_row=True):
+    """Round-tail operands: v, h, d [C, rows, lanes], a shared dither, one
+    scale per row (one of them zero), 0/1 weights (some zero) and den."""
+    rng = np.random.default_rng(seed)
+    v, h, d = (rng.standard_normal((clients, rows, lanes)).astype(dtype)
+               for _ in range(3))
+    u = rng.random((rows, lanes)).astype(dtype)
+    scale = (np.abs(v - h).max(axis=(0, 2))[:, None] / 127).astype(dtype)
+    if zero_row:
+        scale[rows // 2, 0] = 0.0
+    w = (rng.random((clients, 1)) < 0.7).astype(dtype)
+    den = np.maximum(w.sum(), 1).astype(dtype).reshape(1, 1)
+    return v, h, d, u, scale, w, den
+
+
+TAIL = dict(c=0.3, alpha=0.02, beta=0.5, bits=8)
+
+
+@pytest.mark.parametrize("clients", [1, 3, 4, 7])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fedcet_round_tail_matches_jax(clients, dtype):
+    jax, jops, jref = _jax()
+    v, h, d, u, scale, w, den = _tail_inputs(clients, 5, dtype)
+    got = ops.fedcet_round_tail(*map(torch.from_numpy,
+                                     (v, h, d, u, scale, w, den)), **TAIL)
+    want_ref = jref.fedcet_round_tail(v, h, d, u, scale, w[:, :, None],
+                                      den[0, 0], **TAIL)
+    want_kernel = jops.fedcet_round_tail(v, h, d, u, scale, w, den,
+                                         impl="kernel", **TAIL)
+    for g_, r_, k_ in zip(got, want_ref, want_kernel):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(r_))
+        _close(g_.numpy(), k_, dtype, scale=_scale(v, h, d))
+
+
+@pytest.mark.parametrize("shape", [(4, 7), (3, 5, 517), (2, 1030)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_stochastic_quantize_matches_jax(shape, dtype):
+    jax, jops, jref = _jax()
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal(shape).astype(dtype)
+    u = rng.random(shape[1:]).astype(dtype)  # the client-shared dither
+    s = np.asarray(np.abs(a).max() / 127, dtype)
+    got = ops.stochastic_quantize(torch.from_numpy(a), torch.from_numpy(u),
+                                  torch.tensor(s), 8).numpy()
+    ub = np.broadcast_to(u, a.shape)
+    np.testing.assert_array_equal(got, np.asarray(jref.stochastic_quantize(
+        a, ub, s, 8)))
+    np.testing.assert_array_equal(got, np.asarray(jops.stochastic_quantize(
+        a, ub, s, 8)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_stochastic_quantize_rows_matches_jax(dtype):
+    jax, jops, jref = _jax()
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((4, 9, 1024)).astype(dtype)
+    u = rng.random((9, 1024)).astype(dtype)
+    s = (np.abs(a).max(axis=(0, 2))[:, None] / 127).astype(dtype)
+    s[4, 0] = 0.0
+    got = ops.stochastic_quantize_rows(torch.from_numpy(a),
+                                       torch.from_numpy(u),
+                                       torch.from_numpy(s), 8).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jref.stochastic_quantize(
+        a, u, s, 8)))
+    tiled = jops.stochastic_quantize_rows(
+        a.reshape(36, 1024), np.broadcast_to(u, a.shape).reshape(36, 1024),
+        np.broadcast_to(s, (4, 9, 1)).reshape(36, 1), 8)
+    np.testing.assert_array_equal(got, np.asarray(tiled).reshape(a.shape))
 
 
 # ----------------------------------------------------------------- card
@@ -149,10 +229,11 @@ def test_cuda_fedcet_comm_equals_plain(shape, dtype, with_v):
     d, m, v = _card_inputs(shape, dtype, 3, seed=1)
     m_bar = m.mean(0, keepdim=True)
     v = v if with_v else None
-    before = K.LAUNCHES["fedcet_comm"]
+    form = "fedcet_comm" if v is None else "fedcet_comm4"
+    before = dict(K.LAUNCHES)
     got = ops.fedcet_comm(d, m, m_bar, C, ALPHA, v=v)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["fedcet_comm"] == before + 1
+    assert K.LAUNCHES == {**before, form: before[form] + 1}
     for a, b in zip(got, ref.fedcet_comm(d, m, m_bar, C, ALPHA, v=v)):
         assert torch.equal(a, b)
 
@@ -184,3 +265,112 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         ops.fedcet_v(x, g.double(), d, ALPHA)
     with pytest.raises(ValueError, match="m_bar"):
         ops.fedcet_comm(d, x, x[:, :1].contiguous(), C, ALPHA)
+
+
+def _card(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clients", [1, 3, 4, 7])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes,rows", [(1024, 6), (1030, 3), (7, 5)],
+                         ids=["arena", "ragged", "narrow"])
+def test_cuda_round_tail_equals_plain(clients, dtype, lanes, rows):
+    """Tolerance 0, with zero weights (absent clients), a zero-scale row
+    and lane counts that defeat the vector path."""
+    _need_cuda()
+    args = _card(*_tail_inputs(clients, rows, dtype, lanes, seed=clients))
+    before = K.LAUNCHES["fedcet_round_tail"]
+    got = ops.fedcet_round_tail(*args, **TAIL)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fedcet_round_tail"] == before + 1
+    for a, b in zip(got, ref.fedcet_round_tail(*args, **TAIL)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_round_tail_keeps_zero_pads_zero(dtype):
+    _need_cuda()
+    v, h, d, u, scale, w, den = _card(*_tail_inputs(4, 3, dtype))
+    for t in (v, h, d, u):
+        t[..., 1000:] = 0.0
+    d2, x2, h2 = ops.fedcet_round_tail(v, h, d, u, scale, w, den, **TAIL)
+    for t in (d2, x2, h2):
+        assert not bool(t[..., 1000:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 14, 64, 256), (3, 100_003), (7, 5),
+                                   (1, 33)])
+@pytest.mark.parametrize("per_client", [False, True], ids=["shared", "pq"])
+def test_cuda_stochastic_quantize_equals_plain(dtype, shape, per_client):
+    _need_cuda()
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal(shape).astype(dtype)
+    u = rng.random(shape if per_client else shape[1:]).astype(dtype)
+    a, u = _card(a, u)
+    for s in (a.abs().max() / 127, torch.zeros((), dtype=a.dtype,
+                                               device="cuda")):
+        before = K.LAUNCHES["stochastic_quantize"]
+        got = ops.stochastic_quantize(a, u, s, 8)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["stochastic_quantize"] == before + 1
+        assert torch.equal(got, ref.stochastic_quantize(a, u, s, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("clients,lanes", [(4, 1024), (3, 1030), (1, 7)])
+def test_cuda_stochastic_quantize_rows_equals_plain(dtype, clients, lanes):
+    _need_cuda()
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal((clients, 9, lanes)).astype(dtype)
+    u = rng.random((9, lanes)).astype(dtype)
+    s = (np.abs(a).max(axis=(0, 2)) / 127).astype(dtype)
+    s[4] = 0.0
+    a, u, s = _card(a, u, s)
+    before = K.LAUNCHES["stochastic_quantize_rows"]
+    got = ops.stochastic_quantize_rows(a, u, s, 8)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["stochastic_quantize_rows"] == before + 1
+    assert torch.equal(got, ref.stochastic_quantize_rows(a, u, s, 8))
+    assert torch.equal(ops.stochastic_quantize_rows(a, u.expand_as(a)
+                                                    .contiguous(), s, 8), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_new_kernels_take_unaligned_operands(dtype):
+    _need_cuda()
+    v, h, d, u, scale, w, den = _tail_inputs(3, 2, dtype, lanes=1024)
+    off = [torch.from_numpy(np.concatenate([[0.0], t.reshape(-1)])
+                            .astype(dtype)).cuda()[1:] for t in (v, h, d, u)]
+    vv, hh, dd = (t.reshape(3, 2, 1024) for t in off[:3])
+    uu = off[3].reshape(2, 1024)
+    assert vv.data_ptr() % 16 != 0 and vv.is_contiguous()
+    rest = _card(scale, w, den)
+    for a, b in zip(ops.fedcet_round_tail(vv, hh, dd, uu, *rest, **TAIL),
+                    ref.fedcet_round_tail(vv, hh, dd, uu, *rest, **TAIL)):
+        assert torch.equal(a, b)
+    s = vv.abs().max() / 127
+    assert torch.equal(ops.stochastic_quantize(vv, uu, s, 8),
+                       ref.stochastic_quantize(vv, uu, s, 8))
+    assert torch.equal(ops.stochastic_quantize_rows(vv, uu, rest[0], 8),
+                       ref.stochastic_quantize_rows(vv, uu, rest[0], 8))
+
+
+@pytest.mark.cuda
+def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take():
+    _need_cuda()
+    v, h, d, u, scale, w, den = _card(*_tail_inputs(3, 2, "float32"))
+    with pytest.raises(ValueError, match="u must be"):
+        ops.fedcet_round_tail(v, h, d, u[:1], scale, w, den, **TAIL)
+    with pytest.raises(ValueError, match="scale needs"):
+        ops.fedcet_round_tail(v, h, d, u, scale[:1], w, den, **TAIL)
+    with pytest.raises(ValueError, match="one scale"):
+        ops.stochastic_quantize(v, u, scale, 8)
+    with pytest.raises(ValueError, match="u must be"):
+        ops.stochastic_quantize(v, u[:1], scale[0], 8)

@@ -1,0 +1,100 @@
+"""The port's threefry PRNG (``core/prng.py``) against ``jax.random`` on the
+CPU, bit for bit: key data, ``fold_in`` (including the warm-up step -1 and
+2**31 - 1), ``split``, ``uniform`` in float32 and float64, ``bernoulli``
+in both dtypes and ``randint`` in int32 and int64. The tests run with
+``jax_enable_x64`` on (``tests/conftest.py``), the reference's setting."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import prng
+
+SHAPES = [(), (7,), (3, 1030), (2, 513, 3)]
+
+
+def _jax():
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    return jax
+
+
+def _data(jax, k) -> tuple:
+    return tuple(int(v) for v in np.asarray(jax.random.key_data(k)))
+
+
+def _pair(seed=3, data=11):
+    jax = _jax()
+    import jax.numpy as jnp
+
+    jk = jax.random.fold_in(jax.random.key(seed), jnp.asarray(data, jnp.int32))
+    return jax, jk, prng.fold_in(prng.key(seed), data)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 5, 2 ** 31 - 1, 2 ** 40 + 3])
+def test_key_and_split_match_jax(seed):
+    jax = _jax()
+    assert _data(jax, jax.random.key(seed)) == prng.key(seed)
+    want = [_data(jax, k) for k in jax.random.split(jax.random.key(seed), 3)]
+    assert prng.split(prng.key(seed), 3) == want
+    assert prng.split(prng.key(seed)) == [
+        _data(jax, k) for k in jax.random.split(jax.random.key(seed))]
+
+
+@pytest.mark.parametrize("data", [0, 1, -1, 7, 2 ** 31 - 1, 0x7A11A5])
+def test_fold_in_matches_jax(data):
+    jax = _jax()
+    import jax.numpy as jnp
+
+    k = jax.random.key(5)
+    want = _data(jax, jax.random.fold_in(k, jnp.asarray(data, jnp.int32)))
+    assert prng.fold_in(prng.key(5), data) == want
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_uniform_matches_jax_bitwise(shape, dtype):
+    jax, jk, pk = _pair()
+    want = np.asarray(jax.random.uniform(jk, shape, dtype=dtype))
+    got = prng.uniform(pk, shape, getattr(torch, dtype)).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got.reshape(-1).view(np.uint8),
+                          want.reshape(-1).view(np.uint8))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_bernoulli_matches_jax(shape, dtype):
+    jax, jk, pk = _pair(seed=7, data=-1)
+    import jax.numpy as jnp
+
+    for p in (0.3, 0.8):
+        want = np.asarray(jax.random.bernoulli(jk, jnp.asarray(p, dtype),
+                                               shape))
+        got = prng.bernoulli(pk, p, shape, getattr(torch, dtype)).numpy()
+        assert np.array_equal(got, want)
+
+
+def test_bernoulli_default_is_the_x64_python_float():
+    jax, jk, pk = _pair()
+    want = np.asarray(jax.random.bernoulli(jk, 0.8, (100,)))
+    assert np.array_equal(prng.bernoulli(pk, 0.8, (100,)).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("n", [1, 3, 10, 24])
+def test_randint_matches_jax(dtype, n):
+    jax, jk, pk = _pair()
+    td = getattr(torch, dtype)
+    assert int(prng.randint(pk, (), 0, n, td)) == int(
+        jax.random.randint(jk, (), 0, n, dtype=dtype))
+    want = np.asarray(jax.random.randint(jk, (50,), 2, n + 5, dtype=dtype))
+    assert np.array_equal(prng.randint(pk, (50,), 2, n + 5, td).numpy(), want)
+
+
+def test_uniform_runs_on_the_tensors_device_and_rejects_other_dtypes():
+    u = prng.uniform(prng.key(0), (4, 5), torch.float64, device="cpu")
+    assert u.device.type == "cpu" and bool(((u >= 0) & (u < 1)).all())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        prng.uniform(prng.key(0), (3,), torch.float16)
