@@ -10,30 +10,46 @@ of the JAX package. Phases, one JSON line each:
 2. build     — every CUDA source of ``csrc/`` compiled with nvcc (one
                process per source, all started together) and linked;
 3. kernels   — each kernel form against its plain PyTorch version, at
-               tolerance 0, at the main path's shapes (the largest stacked
-               fedlm-100m leaf ``[4, 14, 640, 2560]``, or the arena
-               ``[4, 104499, 1024]``) in float32 and float64, at ragged
-               sizes and at the edge cases (zero scales, zero client
-               weights, per-client dither); kernel, plain and bound times
-               from CUDA events;
+               tolerance 0, at the main paths' shapes (the largest stacked
+               fedlm-100m leaf ``[4, 14, 640, 2560]``, the arena
+               ``[4, 104499, 1024]``, and path E's 8-client arena
+               ``[8, 107006976]``: the gossip reduce with the 8-ring's
+               table, the triad, and the pair in its one-client form with a
+               per-client m_bar of m's shape) in float32
+               and float64, at ragged sizes and at the edge cases (zero
+               scales, zero client weights, per-client dither, unaligned
+               pointers, zero-weight pad slots, S in {1, 3, 5, n}, n in
+               {1, 8, 10, 1024}); kernel, plain and bound times from CUDA
+               events, and for the gossip reduce the time of torch.matmul
+               with the dense weighted matrix (the library yardstick);
 4. quadratic — FedCET on the paper's §IV problem in float64 through the
                kernels: uncompressed (400 rounds), ``shift:q8`` on the
                arena through the fused tail and per leaf (both must reach
                < 1e-9), and ``shift:q8`` on the arena at 0.8 participation
                (within 10x of the uncompressed run under the same
-               sampling);
+               sampling); then the topologies: NIDS over ``ring:sparse``,
+               ``torus:sparse`` and ``er:0.5:sparse`` (2000 rounds,
+               max-client error < 1e-9), FedCET over ``ring:sparse`` (1200
+               rounds, < 1e-9, ``|mean_i d_i| <= 1e-10``) and ``hier:g5``
+               (800 rounds, < 1e-9), and ``er:0.5:t:sparse`` against
+               ``er:0.5:t`` (per-round errors within 1e-12 over 50 rounds);
 5. parity    — one FedCET round of the reduced model on the card and on
                the CPU from the same parameters and tokens;
 6. prng      — the threefry dither of the whole fedlm-100m model, timed;
 7. train     — ``run_training`` of fedlm-100m at full width (4 clients,
                batch 8, seq 128, tau 2, 5 rounds) on four paths, each with
                the launch counts reset just before and read just after:
-               (A) the dense star round, (B) THIS SLICE'S MAIN PATH,
-               ``shift:q8`` on the arena (the fused round tail), (C)
-               ``shift:q8`` per leaf at participation 0.75, (D) ``q8`` on
-               the arena. Per round: loss, time, the Lemma 2 residual and
-               where the time goes (gradients, each kernel, the dither, the
-               scale pass, pack/unpack).
+               (A) the dense star round, (B) ``shift:q8`` on the arena (the
+               fused round tail), (C) ``shift:q8`` per leaf at
+               participation 0.75, (D) ``q8`` on the arena; then at 8
+               clients, batch 4 (the same tokens per round): (E) the gossip
+               main path, ``ring:sparse`` on the arena (the gossip reduce
+               kernel), (F) ``ring`` on the arena (the dense lowering,
+               torch.matmul; its losses and its final drift d held against
+               E's), (G) ``hier:g4`` on the arena. Per round: loss,
+               time, the Lemma 2 residual and where the time goes
+               (gradients, each kernel, the dither, the scale pass,
+               pack/unpack, the topology's reduce).
 
 Then the kernels summary line, the ``nvidia-smi`` name/power-limit line and
 the final ``{"ok": true, ...}`` line. Any failed check raises: the script
@@ -63,7 +79,10 @@ ARENA_SHAPE = (4, 104_499, 1024)  # fedlm-100m's stacked arena
 ALPHA, C = 3e-3, 0.05
 BITS, BETA = 8, 1.0              # shift:q8: 8-bit codes, DIANA step 1
 INVARIANT_MAX = 1e-5           # ||sum_i d_i|| / (c ||x||), float32 rounding
+D_GAP_MAX = 1e-3               # ||d_E - d_F|| / ||d_F|| after 5 rounds
 TRAIN = dict(n_clients=4, batch=8, seq_len=128, tau=2, steps=5)
+TRAIN_TOPO = dict(n_clients=8, batch=4, seq_len=128, tau=2, steps=5)
+GOSSIP_SHAPE = (8, 107_006_976)  # fedlm-100m's 8-client arena, [n, rows*1024]
 SRC = "src/repro_torch/kernels/csrc/"
 #: kernel form -> (source, TPU kernel it replaces: def / pallas_call line)
 KERNELS = {
@@ -77,6 +96,8 @@ KERNELS = {
                                  "src/repro/kernels/quantize.py:90"),
     "fedcet_round_tail": ("fedcet_update.cu",
                           "src/repro/kernels/fedcet_update.py:136"),
+    "gossip_reduce": ("gossip_reduce.cu",
+                      "src/repro/kernels/gossip_reduce.py:59"),
 }
 
 
@@ -146,12 +167,19 @@ def _uniform(shape, dtype, seed):
     return torch.rand(shape, generator=gen, device="cuda", dtype=dtype)
 
 
-def _max_err(got, want) -> float:
-    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+def _max_err(got, want, chunk=1 << 27) -> float:
+    """Largest |got - want| over the pairs, in chunks (no full-size
+    temporary beside the 6.8 GB float64 gossip operands)."""
+    return max(float((x - y).abs().max())
+               for a, b in zip(got, want)
+               for x, y in zip(a.reshape(-1).split(chunk),
+                               b.reshape(-1).split(chunk)))
 
 
-def _case_fedcet(form, shape, dtype, seed):
-    """(kernel, plain, bytes, flops) of a triad / pair case."""
+def _case_fedcet(form, shape, dtype, seed, one_client=False):
+    """(kernel, plain, bytes, flops) of a triad / pair case. ``one_client``:
+    a per-client m_bar of m's shape, the gossip aggregate of path E, which
+    the wrapper reads as one client."""
     from repro_torch.kernels import fedcet_update as K
     from repro_torch.kernels import ref
 
@@ -161,7 +189,7 @@ def _case_fedcet(form, shape, dtype, seed):
         return (lambda: (K.fedcet_v(a, b, e, ALPHA),),
                 lambda: (ref.fedcet_v(a, b, e, ALPHA),),
                 4 * a.numel() * es, 4 * a.numel())
-    mb = b.mean(0, keepdim=True)
+    mb = e if one_client else b.mean(0, keepdim=True)
     vv = e if form == "fedcet_comm4" else None
     reads = 3 if vv is not None else 2
     return (lambda: K.fedcet_comm(a, b, mb, C, ALPHA, v=vv),
@@ -227,18 +255,118 @@ def _case_round_tail(shape, dtype, seed, mask=None):
             14 * v.numel())
 
 
+def _gossip_table(n, slots, rows, seed, dtype):
+    """A padded neighbor table on the card: slot 0 the node itself, random
+    neighbors, a zero-weight self pad in the last slot of even nodes."""
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, rows, (n, slots), generator=gen)
+    idx[:, 0] = torch.arange(n) % rows
+    wgt = torch.rand((n, slots), generator=gen, dtype=torch.float64)
+    if slots > 1:
+        pad = torch.arange(n) % 2 == 0
+        idx[pad, -1] = idx[pad, 0]
+        wgt[pad, -1] = 0.0
+    return idx.cuda(), wgt.to(dtype).cuda()
+
+
+def _case_gossip(shape, dtype, seed, slots=3, rows=None, ring=False,
+                 unaligned=False, identity=False):
+    """(kernel, plain, bytes, flops, library) of a gossip reduce case.
+    ``ring``: the 8-ring's Metropolis table (``Mixing._static_tables``);
+    ``identity``: the reference's contract, a segment sum over a
+    ``[n*S, D]`` tensor; the library call is torch.matmul with the dense
+    row-normalized matrix of the same table, ``(W / denom) @ src``."""
+    from repro_torch.core.topology import Mixing
+    from repro_torch.kernels import gossip_reduce as KG
+    from repro_torch.kernels import ops, ref
+
+    n, dim = shape
+    es = torch.empty((), dtype=dtype).element_size()
+    if identity:
+        (contrib,) = _operands((n * slots, dim), dtype, 1, seed)
+        return (lambda: (ops.gossip_reduce(contrib, slots=slots,
+                                           impl="kernel"),),
+                lambda: (ref.segment_reduce(contrib, slots),),
+                (n * slots + n) * dim * es, n * (slots - 1) * dim, None)
+    rows = n if rows is None else rows
+    if ring:
+        idx_np, wgt_np = Mixing.ring(n)._static_tables()
+        idx = torch.from_numpy(idx_np).cuda()
+        wgt = torch.from_numpy(wgt_np).to(dtype).cuda()
+        slots = idx.shape[1]
+    else:
+        idx, wgt = _gossip_table(n, slots, rows, seed, dtype)
+    denom = wgt.sum(dim=1)
+    if unaligned:
+        (buf,) = _operands((rows * dim + 1,), dtype, 1, seed)
+        src = buf[1:].view(rows, dim)
+    else:
+        (src,) = _operands((rows, dim), dtype, 1, seed)
+    library = None
+    if rows == n:
+        dense = torch.zeros((n, n), dtype=dtype, device="cuda").index_put_(
+            (torch.arange(n, device="cuda")[:, None].expand_as(idx), idx),
+            wgt, accumulate=True) / denom[:, None]
+        library = lambda: (torch.matmul(dense, src),)  # noqa: E731
+    nbytes = ((rows + n) * dim + n * slots + n) * es + n * slots * 8
+    return (lambda: (KG.gossip_reduce(src, idx, wgt, denom),),
+            lambda: (ref.gossip_reduce(src, idx, wgt, denom),),
+            nbytes, 2 * slots * n * dim, library)
+
+
+#: labels of the cases timed (their first float32 case); "main" is the
+#: one the summary line reports.
+TIMED = ("main", "gossip_arena", "one_client_gossip_arena")
+
+
 def _cases(form):
-    """(label, shape, dtype, builder) cases of one kernel form; the first
-    float32 case at the main path's shape is the one timed."""
+    """(label, shape, dtype, builder) cases of one kernel form."""
     f32, f64 = torch.float32, torch.float64
+    if form == "gossip_reduce":
+        g = _case_gossip
+
+        def with_(**kw):
+            return lambda sh, dt, i: g(sh, dt, i, **kw)
+
+        return [("main", GOSSIP_SHAPE, f32, with_(ring=True)),
+                ("main", GOSSIP_SHAPE, f64, with_(ring=True)),
+                ("ragged", (8, 100_003), f32, with_(ring=True)),
+                ("ragged", (8, 100_003), f64, with_(ring=True)),
+                ("unaligned", (8, 4096), f32, with_(ring=True,
+                                                    unaligned=True)),
+                ("unaligned", (10, 4099), f64, with_(slots=5,
+                                                     unaligned=True)),
+                ("slots_1", (10, 4096), f64, with_(slots=1)),
+                ("slots_5", (10, 4096), f32, with_(slots=5)),
+                ("slots_n", (10, 4096), f64, with_(slots=10)),
+                ("one_node", (1, 4096), f32, with_(slots=1)),
+                ("one_node", (1, 1030), f64, with_(slots=3)),
+                ("n_1024", (1024, 4096), f32, with_(slots=3)),
+                ("n_1024_slots_n", (1024, 256), f64, with_(slots=1024)),
+                ("wide_table", (64, 520), f32, with_(slots=5000, rows=5000)),
+                ("identity", (8, 4096), f32, with_(identity=True)),
+                ("identity", (10, 1030), f64, with_(slots=5,
+                                                    identity=True))]
     if form in ("fedcet_v", "fedcet_comm", "fedcet_comm4"):
         ragged = (100_003,) if form == "fedcet_v" else (4, 100_003)
-        return [(lbl, sh, dt, lambda sh, dt, i: _case_fedcet(form, sh, dt, i))
-                for lbl, sh, dt in (("main", MAIN_SHAPE, f32),
-                                    ("main", MAIN_SHAPE, f64),
-                                    ("ragged", ragged, f32),
-                                    ("ragged", ragged, f64),
-                                    ("quadratic", (10, 60), f64))]
+        cases = [(lbl, sh, dt, lambda sh, dt, i: _case_fedcet(form, sh, dt, i))
+                 for lbl, sh, dt in (("main", MAIN_SHAPE, f32),
+                                     ("main", MAIN_SHAPE, f64),
+                                     ("ragged", ragged, f32),
+                                     ("ragged", ragged, f64),
+                                     ("quadratic", (10, 60), f64))]
+        if form == "fedcet_v":  # path E's 8-client arena, one launch
+            cases += [("gossip_arena", GOSSIP_SHAPE, dt, cases[0][3])
+                      for dt in (f32, f64)]
+        if form == "fedcet_comm":  # path E's one-client form, m_bar [n, P]
+            one = lambda sh, dt, i: _case_fedcet(form, sh, dt, i,  # noqa: E731
+                                                 one_client=True)
+            cases += [("one_client_gossip_arena", GOSSIP_SHAPE, f32, one),
+                      ("one_client_gossip_arena", GOSSIP_SHAPE, f64, one),
+                      ("one_client_ragged", (7, 100_003), f32, one),
+                      ("one_client_ragged", (7, 100_003), f64, one),
+                      ("one_client_quadratic", (10, 60), f64, one)]
+        return cases
     if form == "stochastic_quantize":
         q = _case_quantize
         return [("main", MAIN_SHAPE, f32, q), ("main", MAIN_SHAPE, f64, q),
@@ -273,26 +401,33 @@ def phase_kernels():
 
     results = {}
     for form in KERNELS:
-        errs, timing = [], None
+        errs, timing = [], {}
         L.reset_launches()
         for i, (label, shape, dtype, build) in enumerate(_cases(form)):
-            kern, plain, nbytes, flops = build(shape, dtype, i)
+            kern, plain, nbytes, flops, *library = build(shape, dtype, i)
+            library = library[0] if library else None
             err = _max_err(kern(), plain())
             torch.cuda.synchronize()
             errs.append({"case": label, "shape": list(shape),
                          "dtype": str(dtype)[6:], "max_abs_err": err})
             check(err == 0.0, f"{form} {label} {shape} {dtype}: kernel "
                               f"differs from its plain version by {err}")
-            if timing is None and label == "main" and dtype == torch.float32:
+            if (label in TIMED and label not in timing
+                    and dtype == torch.float32):
                 p1, k1, k2, p2 = (time_ms(plain), time_ms(kern),
                                   time_ms(kern), time_ms(plain))
                 b_ms, b_by = bound(nbytes, flops, dtype)
-                timing = {"shape": list(shape), "ms": (k1 + k2) / 2,
-                          "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
-                          "bound_by": b_by, "bytes": nbytes, "flops": flops}
-            del kern, plain
+                lib_ms = None
+                if library is not None:
+                    lib_ms = (time_ms(library) + time_ms(library)) / 2
+                timing[label] = {"shape": list(shape), "ms": (k1 + k2) / 2,
+                                 "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
+                                 "bound_by": b_by, "bytes": nbytes,
+                                 "flops": flops, "library_ms": lib_ms}
+            del kern, plain, library
             torch.cuda.empty_cache()
-        results[form] = {**timing, "checks": errs, "tolerance": 0.0,
+        results[form] = {**timing.pop("main"), "also_timed": timing,
+                         "checks": errs, "tolerance": 0.0,
                          "max_abs_err": max(c["max_abs_err"] for c in errs),
                          "check_launches": L.LAUNCHES[form]}
         emit({"phase": "kernels", "kernel": form, **results[form]})
@@ -360,6 +495,60 @@ def phase_quadratic():
         check(all(launches[name].get(f, 0) > 0 for f in forms),
               f"quadratic {name}: expected launches of {forms}, got "
               f"{launches[name]}")
+    launches.update(_quadratic_topologies(problem, base))
+    return launches
+
+
+def _quadratic_topologies(problem, base):
+    """The reference's own topology checks (``tests/test_topology.py``) on
+    the card, in float64: NIDS over the sparse gossip graphs (max-client
+    error, since the mean error is blind to the graph), FedCET over
+    ``ring:sparse`` (exact, drift mean zero) and ``hier:g5``, and the
+    resampled graph's sparse and dense lowerings round by round."""
+    from repro_torch.core.baselines import NIDS
+    from repro_torch.core.engine import with_topology
+    from repro_torch.core.simulate import simulate_quadratic
+    from repro_torch.kernels import library as L
+
+    nids = NIDS(alpha=1.0 / problem.L, n_clients=problem.n_clients)
+    runs = {f"nids_{spec}": (with_topology(nids, spec), 2000)
+            for spec in ("ring:sparse", "torus:sparse", "er:0.5:sparse")}
+    runs["fedcet_ring:sparse"] = (with_topology(base, "ring:sparse"), 1200)
+    runs["fedcet_hier:g5"] = (with_topology(base, "hier:g5"), 800)
+    runs["fedcet_er:0.5:t:sparse"] = (with_topology(base, "er:0.5:t:sparse",
+                                                    seed=11), 50)
+    runs["fedcet_er:0.5:t"] = (with_topology(base, "er:0.5:t", seed=11), 50)
+    launches, res = {}, {}
+    for name, (algo, rounds) in runs.items():
+        L.reset_launches()
+        t0 = time.perf_counter()
+        res[name] = simulate_quadratic(algo, problem, rounds, device="cuda")
+        x = algo.client_params(res[name].state)
+        max_client = float(torch.linalg.norm(x - problem.x_star, dim=1).max())
+        torch.cuda.synchronize()
+        launches[name] = {k: n for k, n in L.LAUNCHES.items() if n}
+        emit({"phase": "quadratic", "run": name, "rounds": rounds,
+              "dtype": "float64", "final_error": res[name].final_error,
+              "max_client_error": max_client,
+              "seconds": time.perf_counter() - t0,
+              "launches": launches[name]})
+        if name.startswith("nids"):
+            check(max_client < 1e-9, f"quadratic {name}: max-client error "
+                                     f"{max_client}")
+        if name in ("fedcet_ring:sparse", "fedcet_hier:g5"):
+            check(res[name].final_error < 1e-9,
+                  f"quadratic {name}: {res[name].final_error}")
+        sparse = name.endswith("sparse")
+        check((launches[name].get("gossip_reduce", 0) > 0) == sparse,
+              f"quadratic {name}: gossip_reduce launches {launches[name]}")
+    d_mean = float(res["fedcet_ring:sparse"].state.d.mean(0).abs().max())
+    diff = float((res["fedcet_er:0.5:t:sparse"].errors
+                  - res["fedcet_er:0.5:t"].errors).abs().max())
+    emit({"phase": "quadratic", "run": "topology_checks",
+          "ring_sparse_max_abs_mean_d": d_mean,
+          "er_t_sparse_vs_dense_max_diff": diff})
+    check(d_mean <= 1e-10, f"ring:sparse |mean_i d_i| = {d_mean}")
+    check(diff <= 1e-12, f"er:0.5:t sparse vs dense differ by {diff}")
     return launches
 
 
@@ -427,11 +616,14 @@ def phase_prng():
 
 class _Timeline:
     """CUDA-event intervals of the gradient evaluations, the kernel
-    wrappers, the dither draws, the scale pass and pack/unpack, grouped per
-    training round (closed by the round callback)."""
+    wrappers, the dither draws, the scale pass, pack/unpack and the
+    topology's reduce, grouped per training round (closed by the round
+    callback). ``topology_ms`` CONTAINS ``gossip_ms`` (the kernel inside the
+    sparse reduce); the other intervals do not nest."""
 
     KEYS = ("grad", "fedcet_v", "fedcet_comm", "quantize", "round_tail",
-            "dither", "scale", "pack")
+            "dither", "scale", "pack", "topology", "gossip")
+    NESTED = ("gossip",)
 
     def __init__(self):
         self.open, self.rounds = [], []
@@ -458,7 +650,7 @@ class _Timeline:
 
 def _instrument(timeline):
     """Route the timed functions through ``timeline``; returns an undo."""
-    from repro_torch.core import arena, compressors, engine, prng
+    from repro_torch.core import arena, compressors, engine, prng, topology
     from repro_torch.kernels import ops
 
     patches = [(engine, "vmap_grads",
@@ -470,7 +662,10 @@ def _instrument(timeline):
                (ops, "fedcet_round_tail", "round_tail"),
                (prng, "uniform", "dither"),
                (compressors, "arena_scale", "scale"),
-               (arena, "pack_rows", "pack"), (arena, "unpack", "pack")]
+               (arena, "pack_rows", "pack"), (arena, "unpack", "pack"),
+               (ops, "gossip_reduce", "gossip"),
+               (topology.Topology, "reduce_and_advance", "topology"),
+               (topology.Hierarchical, "reduce_and_advance", "topology")]
     saved = []
     for mod, name, how in patches:
         real = getattr(mod, name)
@@ -485,34 +680,49 @@ def _instrument(timeline):
     return undo
 
 
-#: train paths: scenario options and the kernel forms each must launch
-#: (B, the main path, must launch exactly these counts: init + 5 rounds).
+#: train paths: scenario options, the kernel forms each must launch, and
+#: the run's size (B and E, the main paths of slices 2 and 3, must launch
+#: exactly these counts: init + 5 rounds).
 PATHS = {
-    "A_dense": ({}, ("fedcet_v", "fedcet_comm")),
+    "A_dense": ({}, ("fedcet_v", "fedcet_comm"), TRAIN),
     "B_shift_q8_arena": ({"compression": "shift:q8", "arena": True},
-                         ("fedcet_v", "fedcet_round_tail")),
+                         ("fedcet_v", "fedcet_round_tail"), TRAIN),
     "C_shift_q8_per_leaf_p0.75": ({"compression": "shift:q8",
                                    "participation": 0.75},
                                   ("fedcet_v", "stochastic_quantize",
-                                   "fedcet_comm4")),
+                                   "fedcet_comm4"), TRAIN),
     "D_q8_arena": ({"compression": "q8", "arena": True},
-                   ("fedcet_v", "stochastic_quantize_rows", "fedcet_comm4")),
+                   ("fedcet_v", "stochastic_quantize_rows", "fedcet_comm4"),
+                   TRAIN),
+    "E_ring_sparse_arena": ({"topology": "ring:sparse", "arena": True},
+                            ("fedcet_v", "fedcet_comm", "gossip_reduce"),
+                            TRAIN_TOPO),
+    "F_ring_dense_arena": ({"topology": "ring", "arena": True},
+                           ("fedcet_v", "fedcet_comm"), TRAIN_TOPO),
+    "G_hier_g4_arena": ({"topology": "hier:g4", "arena": True},
+                        ("fedcet_v", "fedcet_comm"), TRAIN_TOPO),
 }
-MAIN_PATH_LAUNCHES = {"fedcet_v": 11, "fedcet_round_tail": 6}
+MAIN_PATH_LAUNCHES = {"B_shift_q8_arena": {"fedcet_v": 11,
+                                           "fedcet_round_tail": 6},
+                      "E_ring_sparse_arena": {"fedcet_v": 11,
+                                              "fedcet_comm": 6,
+                                              "gossip_reduce": 6}}
 
 
-def _train_path(name, scenario, expected):
+def _train_path(name, scenario, expected, config):
     from repro_torch.kernels import library as L
     from repro_torch.launch.train import run_training
     from repro_torch.utils.tree import tree_leaves
 
     timeline = _Timeline()
     undo = _instrument(timeline)
-    invariants = []
+    invariants, final = [], {}
 
     def on_round(r, loss, comm, state):
         timeline.close_round()
         inner = state.inner if hasattr(state, "extras") else state
+        if r == config["steps"] - 1:
+            final["d"] = tree_leaves(inner.d)
         norm = lambda ts: math.sqrt(sum(float(t.double().pow(2).sum())  # noqa: E731
                                         for t in ts))
         # arena data or per-leaf tensors: pads are 0, so the norms agree.
@@ -532,36 +742,67 @@ def _train_path(name, scenario, expected):
     L.reset_launches()
     try:
         hist = run_training("fedlm-100m", reduced=False, device="cuda",
-                            log_every=1, callback=on_round, **TRAIN,
+                            log_every=1, callback=on_round, **config,
                             **scenario)
     finally:
         undo()
     launches = dict(L.LAUNCHES)
     for i, r in enumerate(hist["round"]):
         split = timeline.rounds[i]
-        split["other_ms"] = 1e3 * hist["seconds"][i] - sum(split.values())
+        split["other_ms"] = 1e3 * hist["seconds"][i] - sum(
+            v for k, v in split.items() if k[:-3] not in _Timeline.NESTED)
         emit({"phase": "train", "path": name, "round": r,
               "loss": hist["loss"][i], "round_s": hist["seconds"][i],
               "invariant": invariants[i], "split_ms": split,
               "note": "round 0 also holds the warm-up" if r == 0 else ""})
     emit({"phase": "train", "path": name, "scenario": scenario,
           "arch": "fedlm-100m", "reduced": False,
-          "n_params": hist["n_params"], **TRAIN,
+          "n_params": hist["n_params"], **config,
           "rounds": len(hist["round"]),
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches})
-    check(len(hist["loss"]) == TRAIN["steps"], f"{name}: not 5 rounds")
+    check(len(hist["loss"]) == config["steps"], f"{name}: not 5 rounds")
     check(all(launches[f] > 0 for f in expected),
           f"{name}: a kernel of the path never launched: {launches}")
-    return launches
+    return launches, hist["loss"], final["d"]
+
+
+def _state_gap(got, want):
+    """``||got - want|| / ||want||`` over the leaves, in float64."""
+    sq = lambda ts: sum(float(t.double().pow(2).sum()) for t in ts)  # noqa: E731
+    return math.sqrt(sq(a - b for a, b in zip(got, want)) / sq(want))
 
 
 def phase_train():
-    launches = {name: _train_path(name, scenario, expected)
-                for name, (scenario, expected) in PATHS.items()}
-    main = launches["B_shift_q8_arena"]
-    want = {f: MAIN_PATH_LAUNCHES.get(f, 0) for f in main}
-    check(main == want, f"main path launches {main}, expected {want}")
+    # The loss barely sees the mixing (m_bar reaches x only through
+    # c*alpha*(v - m_bar)); the drift d = sum_rounds c*(m - W m) carries it
+    # at full scale: a reduce that returned m unmixed leaves d = 0, a wrong
+    # table moves it by O(1). So E's final d is held against F's.
+    launches, losses = {}, {}
+    for name, (scenario, expected, config) in PATHS.items():
+        launches[name], losses[name], d = _train_path(name, scenario,
+                                                      expected, config)
+        if name == "E_ring_sparse_arena":  # on the host: F's peak stays F's
+            d_sparse = [t.cpu() for t in d]
+        if name == "F_ring_dense_arena":
+            d_gap = _state_gap([t.cuda() for t in d_sparse], d)
+            del d_sparse
+        del d
+        torch.cuda.empty_cache()
+    for name, counts in MAIN_PATH_LAUNCHES.items():
+        want = {f: counts.get(f, 0) for f in launches[name]}
+        check(launches[name] == want,
+              f"{name} launches {launches[name]}, expected {want}")
+    check(launches["F_ring_dense_arena"]["gossip_reduce"] == 0,
+          "the dense lowering launched the gossip reduce")
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(losses["F_ring_dense_arena"], losses["E_ring_sparse_arena"]))
+    emit({"phase": "train", "check": "F_vs_E",
+          "loss_max_relative_difference": rel,
+          "final_d_relative_difference": d_gap, "d_tolerance": D_GAP_MAX})
+    check(rel <= 1e-4, f"dense and sparse ring losses differ by {rel}")
+    check(d_gap <= D_GAP_MAX, f"dense and sparse ring final drift differ by "
+                              f"{d_gap} (relative)")
     return launches
 
 
@@ -570,7 +811,8 @@ OWNER = {"fedcet_v": "B_shift_q8_arena", "fedcet_comm": "A_dense",
          "fedcet_comm4": "C_shift_q8_per_leaf_p0.75",
          "stochastic_quantize": "C_shift_q8_per_leaf_p0.75",
          "stochastic_quantize_rows": "D_q8_arena",
-         "fedcet_round_tail": "B_shift_q8_arena"}
+         "fedcet_round_tail": "B_shift_q8_arena",
+         "gossip_reduce": "E_ring_sparse_arena"}
 
 
 def main() -> int:
@@ -601,7 +843,7 @@ def main() -> int:
             "replaces": replaces, "launches": paths[OWNER[form]][form],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "launches_by_path": {p: n[form] for p, n in paths.items()}})
     check(all(s["launches"] > 0 for s in summary),
           f"a kernel form has no launch on its path: {summary}")

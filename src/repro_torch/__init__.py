@@ -14,7 +14,11 @@ reference is built around: ``jax.random``'s bits (``core/prng.py``), the
 ``shift:q8`` / ``q8`` / ``pq8`` uplink (``core/compressors.py``), client
 sampling, the packed parameter arena (``core/arena.py``) and CUDA kernels
 for the dithered quantizer (``kernels/csrc/quantize.cu``) and the fused
-round tail (``kernels/csrc/fedcet_update.cu``).
+round tail (``kernels/csrc/fedcet_update.cu``). Slice 3: the aggregation
+topologies (``core/topology.py``: star, hierarchical with tier
+recompression, gossip mixing with dense and sparse lowerings), the NIDS
+spec (``core/baselines/nids.py``), topology-aware accounting, and a CUDA
+kernel for the gossip neighbor reduce (``kernels/csrc/gossip_reduce.cu``).
 """
 
 import torch

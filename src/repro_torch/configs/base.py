@@ -126,11 +126,9 @@ class ArchConfig:
 #: FedScenario fields whose mechanisms later slices port (see ROADMAP.md).
 _SCENARIO_LATER = {
     "compression_plan": ("none", "per-leaf compression plans"),
-    "delay": ("none", "the scenario-axes slice"),
-    "stale_policy": ("last", "the scenario-axes slice"),
-    "topology": ("star", "the scenario-axes slice"),
-    "tier_compression": ("none", "the scenario-axes slice"),
-    "cohort": ("none", "the scenario-axes slice"),
+    "delay": ("none", "the staleness slice"),
+    "stale_policy": ("last", "the staleness slice"),
+    "cohort": ("none", "the cohort slice"),
     "telemetry": (False, "the telemetry slice"),
 }
 
@@ -140,13 +138,16 @@ class FedScenario:
     """Launch-level federated-scenario knob: which compressor rides the
     uplink (``compression``, a ``core/compressors.py:from_spec`` spec such
     as ``"shift:q8"``), what fraction of clients participates per round,
-    whether the client store lives in the packed arena, and the seed of
-    their random schedules.
+    whether the client store lives in the packed arena, the aggregation
+    geometry (``topology``, a ``core/topology.py:parse_topology`` spec:
+    ``"star"``, ``"hier:g8"``, ``"ring"``, ``"ring:sparse"``,
+    ``"er:0.4:t"``; ``tier_compression`` re-compresses a hierarchy's
+    interior tiers), and the seed of their random schedules.
 
-    The other fields mirror the reference and must stay at their defaults
-    in this slice: anything else raises "not yet ported". ``apply``
-    composes the scenario onto any engine algorithm, in the reference's
-    order."""
+    The other fields (delay and stale policy, cohort, compression plans,
+    telemetry) mirror the reference and must stay at their defaults:
+    anything else raises "not yet ported". ``apply`` composes the scenario
+    onto any engine algorithm, in the reference's order."""
 
     compression: str = "none"
     compression_plan: Any = "none"
@@ -171,9 +172,12 @@ class FedScenario:
 
     def apply(self, algo):
         from repro_torch.core.engine import (with_arena, with_compression,
-                                             with_participation)
+                                             with_participation,
+                                             with_topology)
 
         algo = with_arena(algo, self.arena)
+        algo = with_topology(algo, self.topology, seed=self.seed,
+                             tier_compression=self.tier_compression)
         algo = with_participation(algo, self.participation, seed=self.seed)
         return with_compression(algo, compressor=self.compression,
                                 error_feedback=self.error_feedback,

@@ -1,6 +1,6 @@
-"""The federated round engine, synchronous star core with message
-compression, client sampling and the packed arena (port of
-``src/repro/core/engine.py``).
+"""The federated round engine: the synchronous round with message
+compression, client sampling, the packed arena and aggregation topologies
+(port of ``src/repro/core/engine.py``).
 
 Every algorithm shares the paper's round structure (Remark 2): ``tau - 1``
 pure-local steps, then ONE aggregating step in which each client transmits
@@ -29,15 +29,23 @@ Composable factories, as in the reference:
   absent ones;
 * :func:`with_arena` packs the model tree into the ``[clients, rows,
   1024]`` arena of ``core/arena.py``, unpacked only at the gradient
-  boundary; on plain synchronous arena rounds the spec's ``_fused_tail``
-  may run compression -> reduce -> aggregate as one kernel.
+  boundary; on plain synchronous arena rounds with no topology attached,
+  the spec's ``_fused_tail`` may run compression -> reduce -> aggregate as
+  one kernel;
+* :func:`with_topology` replaces the flat star mean with a hierarchical
+  tree or a gossip graph (``core/topology.py``), under the same per-client
+  weights (uniform, or the participation mask). A stateful topology's
+  :class:`~repro_torch.core.topology.TopoState` rides the ``EngineState``
+  extras after the transform extras; the aggregating step advances it
+  through ``reduce_and_advance``, and ``begin_round`` gets the read-only
+  ``reduce``.
 
 PyTorch runs eagerly, so the reference's ``lax.scan`` over local steps and
 over rounds become Python loops, and the step counter ``t`` is a Python
 int: every PRNG key of a round is derived on the host, and only the bulk
-draws run on the card. Delay, topology, cohort and telemetry stay as
-fields, and setting any of them raises ``NotImplementedError`` naming the
-slice that ports it.
+draws run on the card. Delay, cohort and telemetry stay as fields, and
+setting any of them raises ``NotImplementedError`` naming the slice that
+ports it.
 """
 
 from __future__ import annotations
@@ -50,13 +58,13 @@ import torch
 from repro_torch.core import arena as ar
 from repro_torch.core import prng
 from repro_torch.core.api import GradFn, vmap_grads
+from repro_torch.core.topology import parse_topology
 from repro_torch.utils.tree import tree_client_mean, tree_leaves, tree_map
 
 #: engine fields whose mechanisms later slices port (see ROADMAP.md).
 _LATER = {
-    "delay": "the scenario-axes slice",
-    "topology": "the scenario-axes slice",
-    "cohort": "the scenario-axes slice",
+    "delay": "the staleness slice",
+    "cohort": "the cohort slice",
     "telemetry": "the telemetry slice",
     "spmd_client_axes": "the multi-GPU launch slice",
 }
@@ -64,7 +72,8 @@ _LATER = {
 
 class EngineState(NamedTuple):
     """Algorithm state plus per-transform extra state (the shift memory of
-    ``shift:`` compressors). Only used when a transform is attached; bare
+    ``shift:`` compressors), then a stateful topology's ``TopoState``. Only
+    used when a transform or a stateful topology is attached; bare
     algorithms keep their bare spec state."""
 
     inner: Any
@@ -235,7 +244,8 @@ class RoundEngine:
 
     def _fused_tail(self, inner, msg, mctx, extras, step, mask):
         """Optional whole-round-tail fusion hook, consulted by
-        ``_comm_step`` on plain synchronous arena rounds. A spec that can
+        ``_comm_step`` on plain synchronous arena rounds with no topology
+        attached (the fused tail computes the star mean). A spec that can
         run transform -> reduce -> ``server_aggregate`` as one fused pass
         over its packed message returns ``(new_inner, new_extras)``;
         ``None`` falls through to the generic seam."""
@@ -321,17 +331,31 @@ class RoundEngine:
 
     # ------------------------------------------------------- state wrapping
     @property
-    def _wrapped(self) -> bool:
-        return bool(self.transforms)
+    def _topo_stateful(self) -> bool:
+        return self.topology is not None and self.topology.stateful
 
-    def _wrap(self, inner, extras):
-        return EngineState(inner, tuple(extras)) if self._wrapped else inner
+    @property
+    def _wrapped(self) -> bool:
+        return bool(self.transforms) or self._topo_stateful
+
+    def _wrap(self, inner, extras, tstate=None):
+        if not self._wrapped:
+            return inner
+        extras = tuple(extras)
+        if self._topo_stateful:
+            extras += (tstate,)
+        return EngineState(inner, extras)
 
     def _split(self, state):
-        """-> (inner, transform extras)."""
+        """-> (inner, transform extras, TopoState | None). Extras layout:
+        per-transform slots first, then the stateful topology's
+        TopoState."""
         if not self._wrapped:
-            return state, ()
-        return state.inner, state.extras
+            return state, (), None
+        extras, tstate = state.extras, None
+        if self._topo_stateful:
+            extras, tstate = extras[:-1], extras[-1]
+        return state.inner, extras, tstate
 
     def _inner(self, state):
         return state.inner if self._wrapped else state
@@ -360,27 +384,49 @@ class RoundEngine:
         return tuple(t.init_extra(like) for t in self.transforms)
 
     def _comm_step(self, gf, inner, extras, batch, rctx, agg, step,
-                   mask=None):
+                   tstate=None, mask=None):
         """The single aggregating step: message -> transforms -> reduce ->
         apply. ``step`` is the state's step counter at round entry (keys
-        the stochastic transforms). On arena rounds the spec's fused tail
-        may take the whole seam. Returns ``(inner, extras)``."""
+        the stochastic transforms). With a topology attached the reduction
+        goes through ``reduce_and_advance`` under the ``mask``-derived
+        weights, the one place topology state moves. On arena rounds with
+        no topology the spec's fused tail may take the whole seam (it
+        computes the star mean). Returns ``(inner, extras, tstate)``."""
         msg, mctx = self.message(gf, inner, batch, rctx)
-        if self.arena:
+        if self.arena and self.topology is None:
             fused = self._fused_tail(inner, msg, mctx, extras, step, mask)
             if fused is not None:
                 inner, new_extras = fused
-                return inner, tuple(new_extras)
+                return inner, tuple(new_extras), tstate
         new_extras = []
         for t, e in zip(self.transforms, extras):
             msg, e = t.apply(msg, e, step)
             new_extras.append(e)
-        inner = self.server_aggregate(inner, msg, agg(msg), mctx, rctx)
-        return inner, tuple(new_extras)
+        if self.topology is not None:
+            msg_bar, tstate = self.topology.reduce_and_advance(
+                msg, self._topo_weights(mask, tree_leaves(msg)[0]), tstate)
+        else:
+            msg_bar = agg(msg)
+        inner = self.server_aggregate(inner, msg, msg_bar, mctx, rctx)
+        return inner, tuple(new_extras), tstate
 
-    def _aggregator(self, mask):
-        """The round's cross-client reduction: the star mean, or the
-        present-clients mean under sampling."""
+    def _topo_weights(self, mask, like: torch.Tensor) -> torch.Tensor:
+        """The per-client weights a topology reduces under, on ``like``'s
+        device: uniform, or the participation mask. float64, the
+        reference's dtype under ``jax_enable_x64``."""
+        if mask is not None:
+            return mask.to(device=like.device, dtype=torch.float64)
+        return torch.ones((self.n_clients,), dtype=torch.float64,
+                          device=like.device)
+
+    def _aggregator(self, mask, tstate, like: torch.Tensor):
+        """The round's READ-ONLY cross-client reduction, for
+        ``begin_round``: the attached topology's weighted reduce (topology
+        state frozen), else the star mean, or the present-clients mean
+        under sampling."""
+        if self.topology is not None:
+            w = self._topo_weights(mask, like)
+            return lambda tr: self.topology.reduce(tr, w, tstate)
         if mask is not None:
             return lambda tr: masked_client_mean(tr, mask)
         return tree_client_mean
@@ -397,7 +443,8 @@ class RoundEngine:
     def init(self, grad_fn: GradFn, x0, init_batch):
         """Replicate-and-warm-up, plus one aggregating step if the spec's
         warm-up requests it. Client sampling never applies at init (the
-        paper's full-participation initialization)."""
+        paper's full-participation initialization), but the topology does:
+        the warm-up aggregation already flows through the tree or graph."""
         gf = self._grad(grad_fn)
         if self.arena and not isinstance(x0, ar.Arena):
             # every state, message and transform-memory tree the spec builds
@@ -405,21 +452,28 @@ class RoundEngine:
             x0 = ar.pack(x0)
         inner, run_comm = self.init_warmup(gf, x0, init_batch)
         extras = self._init_extras(inner)
+        like = self.message_like(inner)
+        tstate = None
+        if self.topology is not None:
+            tstate = self.topology.init_state(
+                like if self.topology.needs_msg_shapes else None)
         if run_comm:
-            inner, extras = self._comm_step(gf, inner, extras, init_batch,
-                                            None, tree_client_mean,
-                                            step=inner.t)
-        return self._wrap(inner, extras)
+            inner, extras, tstate = self._comm_step(
+                gf, inner, extras, init_batch, None,
+                self._aggregator(None, tstate, tree_leaves(like)[0]),
+                step=inner.t, tstate=tstate)
+        return self._wrap(inner, extras, tstate)
 
     def round(self, grad_fn: GradFn, state, batches):
         """One communication round: optional round-start exchange, tau-1
         local steps, one aggregating step. ``batches`` leaves have leading
         ``[tau, clients, ...]`` axes."""
         gf = self._grad(grad_fn)
-        inner, extras = self._split(state)
+        inner, extras, tstate = self._split(state)
         step0 = inner.t  # round-entry counter: keys masks AND compressors
-        mask = self._mask(step0, tree_leaves(self.message_like(inner))[0])
-        agg = self._aggregator(mask)
+        like = tree_leaves(self.message_like(inner))[0]
+        mask = self._mask(step0, like)
+        agg = self._aggregator(mask, tstate, like)
         frozen_inner, frozen_extras = inner, extras
         inner, rctx = self.begin_round(
             gf, inner, tree_map(lambda b: b[0], batches), agg)
@@ -427,14 +481,16 @@ class RoundEngine:
             inner = self.local_step(gf, inner,
                                     tree_map(lambda b: b[k], batches), rctx)
         last_b = tree_map(lambda b: b[self.tau - 1], batches)
-        inner, extras = self._comm_step(gf, inner, extras, last_b, rctx, agg,
-                                        step=step0, mask=mask)
+        inner, extras, tstate = self._comm_step(
+            gf, inner, extras, last_b, rctx, agg, step=step0, tstate=tstate,
+            mask=mask)
         if mask is not None:
-            # absent clients keep their pre-round state entirely.
+            # absent clients keep their pre-round state entirely; the
+            # topology round index is network state and is never reverted.
             inner = select_clients(inner, frozen_inner, mask, self.n_clients)
             extras = tuple(select_clients(e, fe, mask, self.n_clients)
                            for e, fe in zip(extras, frozen_extras))
-        return self._wrap(inner, extras)
+        return self._wrap(inner, extras, tstate)
 
 
 # ------------------------------------------------------- transform factories
@@ -481,6 +537,34 @@ def with_compression(algo: RoundEngine, *, k_frac: float = 1.0,
         "error-feedback transform) is not yet ported to PyTorch: it comes "
         "with a later slice of the port (ROADMAP Queue 1 item 6); pass "
         "compressor= instead")
+
+
+def with_topology(algo: RoundEngine, topology, *, seed: int = 0,
+                  tier_compression=None) -> RoundEngine:
+    """Non-star aggregation geometry for ANY engine algorithm: a
+    hierarchical tree or a gossip graph at the aggregation seam (see
+    ``core/topology.py``).
+
+    ``topology`` is a spec string (``"hier:g8"``, ``"hier:16x4"``,
+    ``"ring"``, ``"torus"``, ``"er:0.4"``, ``"er:0.4:t"`` resampled every
+    round; gossip specs take a trailing ``":sparse"``) or a Topology
+    object; ``seed`` keys graph draws and tier-compression dither.
+    ``tier_compression`` (hierarchies only) re-compresses interior tier
+    uplinks. Star specs are exact no-ops: the algorithm is returned
+    unchanged. The topology applies wherever the engine reduces across
+    clients (the aggregating step, ``begin_round``, the warm-up
+    aggregation at ``init``) under the star engine's per-client weights,
+    so it composes with ``with_compression`` / ``with_participation`` in
+    any order."""
+    topo = parse_topology(topology, algo.n_clients, seed=seed,
+                          tier_compression=tier_compression)
+    if topo is None:
+        return algo
+    if algo.topology is not None:
+        raise ValueError("algorithm already has a topology attached "
+                         f"({algo.topology!r}); stacked topologies are "
+                         "undefined")
+    return dataclasses.replace(algo, topology=topo)
 
 
 def with_arena(algo: RoundEngine, enable: bool = True) -> RoundEngine:

@@ -8,10 +8,11 @@ linked, into ``build/torch_kernels/`` under the checkout. The library is
 named by a hash over all sources, headers and flags, so editing any of
 them rebuilds it. Nothing is built or loaded at import time.
 
-Each kernel wrapper (``kernels/fedcet_update.py``, ``kernels/quantize.py``)
-checks device, dtype, contiguity and shape, allocates its outputs with
-``torch.empty``, launches on PyTorch's current stream, raises if the
-launch reports an error, and adds one to its entry of :data:`LAUNCHES`.
+Each kernel wrapper (``kernels/fedcet_update.py``, ``kernels/quantize.py``,
+``kernels/gossip_reduce.py``) checks device, dtype, contiguity and shape,
+allocates its outputs with ``torch.empty``, launches on PyTorch's current
+stream, raises if the launch reports an error, and adds one to its entry
+of :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: launches per kernel form (plain integers; reset with reset_launches()).
 LAUNCHES = {"fedcet_v": 0, "fedcet_comm": 0, "fedcet_comm4": 0,
             "stochastic_quantize": 0, "stochastic_quantize_rows": 0,
-            "fedcet_round_tail": 0}
+            "fedcet_round_tail": 0, "gossip_reduce": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -52,6 +53,7 @@ _SIGNATURES = {
                                          _i64, _i32, _ptr]),
     "stochastic_quantize": [_ptr] * 4 + [_i32, _i64, _i64, _i64, _i32, _i32,
                                          _ptr],
+    "gossip_reduce": [_ptr] * 5 + [_i64, _i64, _i64, _i32, _ptr],
 }
 #: counted forms that share another form's C entry point.
 _ENTRY = {"fedcet_comm4": "fedcet_comm",

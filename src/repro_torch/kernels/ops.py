@@ -1,7 +1,7 @@
 """Public wrappers of the port's kernels (port of
 ``src/repro/kernels/ops.py``: ``fedcet_v``, ``fedcet_comm``,
-``stochastic_quantize``, ``stochastic_quantize_rows`` and
-``fedcet_round_tail``).
+``stochastic_quantize``, ``stochastic_quantize_rows``,
+``fedcet_round_tail`` and ``gossip_reduce``).
 
 ``impl`` selects the implementation:
 
@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import fedcet_update as K
+from repro_torch.kernels import gossip_reduce as KG
 from repro_torch.kernels import quantize as KQ
 from repro_torch.kernels import ref as R
 
@@ -88,3 +89,33 @@ def fedcet_round_tail(v, h, d, u, scale, w, den, *, c: float, alpha: float,
                                    alpha=alpha, beta=beta, bits=bits)
     return R.fedcet_round_tail(v, h, d, u, scale, w, den, c=c, alpha=alpha,
                                beta=beta, bits=bits)
+
+
+def gossip_reduce(src, idx=None, wgt=None, denom=None, *, slots=None,
+                  impl: str = "auto"):
+    """The gossip neighbor reduce (see kernels/ref.py:gossip_reduce), in
+    two forms:
+
+    * ``gossip_reduce(src, idx, wgt, denom)``, the gather form the sparse
+      ``Mixing`` lowering calls on each stacked leaf viewed as ``[n, D]``:
+      ``out[i] = (sum_s wgt[i, s] * src[idx[i, s]]) / denom[i]``;
+    * ``gossip_reduce(contrib, slots=S)``, the reference's contract: the
+      fixed-slot segment sum of a ``[n*S, D]`` contribution tensor (the
+      same kernel with the identity table and unit weights, no division).
+
+    Returns ``[n, D]``."""
+    if slots is not None:
+        if idx is not None or wgt is not None or denom is not None:
+            raise ValueError("gossip_reduce: pass slots= alone, or idx and "
+                             "wgt (and denom), not both")
+        if src.shape[0] % slots:
+            raise ValueError(f"gossip_reduce: {src.shape[0]} rows are not "
+                             f"a whole number of {slots}-slot nodes")
+        n = src.shape[0] // slots
+        idx = torch.arange(n * slots, device=src.device).reshape(n, slots)
+        wgt = torch.ones((n, slots), dtype=src.dtype, device=src.device)
+    elif idx is None or wgt is None:
+        raise ValueError("gossip_reduce: pass idx and wgt, or slots=")
+    if _use_kernel(impl, src):
+        return KG.gossip_reduce(src, idx, wgt, denom)
+    return R.gossip_reduce(src, idx, wgt, denom)

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (port of
-``src/repro/kernels/ref.py:8-59, 79-89``), term for term: the CPU path of
+``src/repro/kernels/ref.py:8-59, 79-101``), term for term: the CPU path of
 ``kernels/ops.py`` and the yardstick the CUDA kernels are held against."""
 
 from __future__ import annotations
@@ -85,3 +85,31 @@ def stochastic_quantize_rows(a, u, scale_rows, bits: int):
     """The row-scale form over the packed arena ``[..., rows, lanes]``:
     ``scale_rows`` holds one step per row."""
     return stochastic_quantize(a, u, scale_rows.reshape(-1, 1), bits)
+
+
+def gossip_reduce(src, idx, wgt, denom=None):
+    """The gossip neighbor reduce, gather form: ``out[i] = (sum_s
+    wgt[i, s] * src[idx[i, s]]) / denom[i]`` for ``src`` ``[R, D]``,
+    ``idx``/``wgt`` ``[n, S]`` and ``denom`` ``[n]`` (None: no division).
+
+    The slots are summed in order from the slot-0 product, the unrolled
+    branch of the reference's sparse lowering (``core/topology.py:732-734``)
+    term for term, so the CUDA kernel, which sums in the same order, is
+    held to a tolerance of 0."""
+    out = wgt[:, 0:1] * src[idx[:, 0]]
+    for s in range(1, idx.shape[1]):
+        out = out + wgt[:, s:s + 1] * src[idx[:, s]]
+    return out if denom is None else out / denom[:, None]
+
+
+def segment_reduce(vals, slots: int):
+    """Fixed-slot segment sum (the reference's ``segment_reduce_2d``
+    contract): ``vals`` is ``[n * slots, d]``, node i's contributions in
+    rows ``i*slots .. (i+1)*slots``; returns the per-node sums ``[n, d]``,
+    slot 0 first. It is :func:`gossip_reduce` with the identity table
+    ``idx[i, s] = i*slots + s`` and unit weights (``x * 1.0 == x``)."""
+    v = vals.reshape(-1, slots, vals.shape[-1])
+    out = v[:, 0]
+    for s in range(1, slots):
+        out = out + v[:, s]
+    return out

@@ -6,19 +6,25 @@ heterogeneous token stream, takes ``tau - 1`` local steps and one
 aggregating step per round, and the FedCET update runs through the
 port's CUDA kernels on the card. It prints the reference's per-round
 lines (``round … loss … bits_up … active_clients …``), with ``bits_up``
-billed bit-true from the attached compressor (``core/comm.py``).
+billed bit-true from the attached compressor and topology
+(``core/comm.py``: gossip bills one message per directed edge, a
+hierarchy its aggregator tiers).
 
-The synchronous star round takes three scenario options of the
-reference: ``compression`` (a ``core/compressors.py`` spec: ``shift:q8``,
-``q8``, ``pq8``), ``participation`` and ``arena``, composed by
-``configs/base.py:FedScenario``. The others (delay, topology, cohort,
-compression plans, telemetry, tracing, checkpoints) raise "not yet
-ported" when set to anything but their default. The mesh launcher
-(``make_plan``, ``lower_train_step``) waits for a multi-GPU slice.
+The synchronous round takes five scenario options of the reference:
+``compression`` (a ``core/compressors.py`` spec: ``shift:q8``, ``q8``,
+``pq8``), ``participation``, ``arena``, ``topology`` (a
+``core/topology.py`` spec: ``hier:g8``, ``ring``, ``ring:sparse``,
+``torus``, ``er:0.4:t``) and ``tier_compression``, composed by
+``configs/base.py:FedScenario``. The others (delay, cohort, compression
+plans, telemetry, tracing, checkpoints) raise "not yet ported" when set to
+anything but their default. The mesh launcher (``make_plan``,
+``lower_train_step``) waits for a multi-GPU slice.
 
 Run as a script:
     python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
         --compression shift:q8 --arena
+    python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
+        --clients 8 --batch 4 --topology ring:sparse --arena
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ SCENARIO_DEFAULTS = {
     "ckpt_dir": None,
 }
 #: the options this slice runs; the others accept their default only.
-PORTED = ("compression", "participation", "arena")
+PORTED = ("compression", "participation", "arena", "topology",
+          "tier_compression")
 
 
 def run_training(arch: str, *, steps: int = 100, tau: int = 2,
@@ -57,9 +64,10 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     """End-to-end FedCET LM training on ``device`` (``cuda`` unless the
     caller passes another; with no card and no explicit device it raises).
 
-    ``scenario`` takes ``compression``, ``participation`` and ``arena``
-    (see the module docstring); the reference's other options raise
-    "not yet ported" unless at their default.
+    ``scenario`` takes ``compression``, ``participation``, ``arena``,
+    ``topology`` and ``tier_compression`` (see the module docstring); the
+    reference's other options raise "not yet ported" unless at their
+    default.
 
     Returns the history ``{"round", "loss", "comm_bytes", "seconds"}`` of
     the logged rounds (every ``log_every``-th and the last) and the model's
@@ -74,8 +82,8 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
             raise TypeError(f"run_training() got an unexpected option {k!r}")
         if k not in PORTED and v != SCENARIO_DEFAULTS[k]:
             raise NotImplementedError(
-                f"{k}={v!r} is not yet ported to PyTorch (this slice runs "
-                f"the synchronous star round: {k}={SCENARIO_DEFAULTS[k]!r})")
+                f"{k}={v!r} is not yet ported to PyTorch (the port runs "
+                f"the synchronous round: {k}={SCENARIO_DEFAULTS[k]!r})")
     ported = {k: scenario.get(k, SCENARIO_DEFAULTS[k]) for k in PORTED}
     device = resolve_device(device)
     if device.type == "cuda":
@@ -167,7 +175,15 @@ def main(argv=None):
     ap.add_argument("--arena", action="store_true",
                     help="pack the client store into the contiguous "
                          "[clients, rows, 1024] parameter arena (fused "
-                         "round tail under shift:q<b>)")
+                         "round tail under shift:q<b> on the star)")
+    ap.add_argument("--topology", default="star",
+                    help="aggregation geometry: star | hier:g8 | hier:16x4 "
+                         "| ring | torus | er:0.4 (gossip specs take a "
+                         "trailing :sparse for the padded neighbor-exchange "
+                         "lowering, e.g. ring:sparse, er:0.4:t:sparse)")
+    ap.add_argument("--tier-compression", default="none",
+                    help="hierarchies only: compressor spec for interior "
+                         "edge->root tier uplinks (e.g. shift:q8)")
     for k, v in SCENARIO_DEFAULTS.items():
         if k in PORTED:
             continue

@@ -1,6 +1,8 @@
 """The port's kernels against the JAX package and against their own plain
 versions: the FedCET triad and pair, the dithered quantizer (one scale per
-leaf, and one per arena row) and the fused round tail.
+leaf, and one per arena row), the fused round tail and the gossip
+neighbor reduce (its CPU tests against the JAX package are in
+``tests/test_torch_gossip.py``).
 
 CPU tests: the port's ``ops``/``ref`` (plain versions on a CPU tensor)
 against JAX's ``ref`` and JAX's ``ops`` with ``impl="kernel"`` (the Pallas
@@ -101,6 +103,33 @@ def test_fedcet_comm_matches_jax(shape, dtype, with_v):
         _close(g_.numpy(), k_, dtype, scale=_scale(d, m, v))
 
 
+def _ring_mix(m, axis=0):
+    """A per-client m_bar of m's shape, as a gossip round hands it over:
+    each client's mean with its two ring neighbors."""
+    return (m + np.roll(m, 1, axis) + np.roll(m, -1, axis)) / 3
+
+
+@pytest.mark.parametrize("shape", [(8, 33), (7, 5, 17), (4, 256, 1024)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fedcet_comm_per_client_m_bar_matches_jax(shape, dtype):
+    """The one-client form (m_bar of m's shape, the gossip aggregate)
+    against the reference's kernel, which broadcasts nothing then."""
+    jax, jops, jref = _jax()
+    d, m = _inputs(shape, dtype, 2, seed=4)
+    m_bar = _ring_mix(m)
+    got = ops.fedcet_comm(torch.from_numpy(d), torch.from_numpy(m),
+                          torch.from_numpy(m_bar), C, ALPHA)
+    jnp = jax.numpy
+    want_ref = jref.fedcet_comm(jnp.asarray(d), jnp.asarray(m),
+                                jnp.asarray(m_bar), C, ALPHA)
+    want_kernel = jops.fedcet_comm(jnp.asarray(d), jnp.asarray(m),
+                                   jnp.asarray(m_bar), C, ALPHA,
+                                   impl="kernel")
+    for g_, r_, k_ in zip(got, want_ref, want_kernel):
+        _close(g_.numpy(), r_, dtype)
+        _close(g_.numpy(), k_, dtype, scale=_scale(d, m))
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     x, g, d = map(torch.from_numpy, _inputs((5, 9), "float64", 3))
     K.reset_launches()
@@ -116,7 +145,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert set(K.LAUNCHES) == {"fedcet_v", "fedcet_comm", "fedcet_comm4",
                                "stochastic_quantize",
                                "stochastic_quantize_rows",
-                               "fedcet_round_tail"}
+                               "fedcet_round_tail", "gossip_reduce"}
     assert not any(K.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.fedcet_v(x, g, d, ALPHA, impl="kernel")
@@ -235,6 +264,25 @@ def test_cuda_fedcet_comm_equals_plain(shape, dtype, with_v):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {**before, form: before[form] + 1}
     for a, b in zip(got, ref.fedcet_comm(d, m, m_bar, C, ALPHA, v=v)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 4096), (7, 100_003), (10, 60),
+                                   (8, 13, 1024)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_fedcet_comm_one_client_form_equals_plain(shape, dtype):
+    """m_bar of m's shape (the gossip aggregate): the wrapper reads the
+    stack as one client, counted as ``fedcet_comm``; (7, 100_003) takes
+    the scalar path, the others the vector path."""
+    _need_cuda()
+    d, m = _card_inputs(shape, dtype, 2, seed=5)
+    m_bar = torch.from_numpy(_ring_mix(m.cpu().numpy())).cuda()
+    before = dict(K.LAUNCHES)
+    got = ops.fedcet_comm(d, m, m_bar, C, ALPHA)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {**before, "fedcet_comm": before["fedcet_comm"] + 1}
+    for a, b in zip(got, ref.fedcet_comm(d, m, m_bar, C, ALPHA)):
         assert torch.equal(a, b)
 
 
@@ -374,3 +422,110 @@ def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take():
         ops.stochastic_quantize(v, u, scale, 8)
     with pytest.raises(ValueError, match="u must be"):
         ops.stochastic_quantize(v, u[:1], scale[0], 8)
+
+
+def _gossip_inputs(n, slots, dim, dtype, rows=None, seed=0):
+    """src [rows or n, dim], a padded table (slot 0 the node itself, the
+    last slot a zero-weight self pad on even nodes) and its denominators,
+    on the card."""
+    rng = np.random.default_rng(seed)
+    rows = n if rows is None else rows
+    idx = rng.integers(0, rows, size=(n, slots)).astype(np.int64)
+    idx[:, 0] = np.arange(n) % rows
+    wgt = rng.random((n, slots)).astype(dtype)
+    if slots > 1:
+        pad = np.arange(n) % 2 == 0
+        idx[pad, -1] = idx[pad, 0]
+        wgt[pad, -1] = 0.0
+    denom = wgt.sum(axis=1).astype(dtype)
+    src = rng.standard_normal((rows, dim)).astype(dtype)
+    return _card(src, idx, wgt, denom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,slots,dim", [(1, 1, 7), (8, 3, 4096),
+                                         (10, 5, 100_003), (8, 8, 1030),
+                                         (3, 7, 33), (1024, 3, 4096)])
+def test_cuda_gossip_reduce_equals_plain(dtype, n, slots, dim):
+    """Tolerance 0, with and without the division, with zero-weight pad
+    slots, ragged widths (no vector path) and n = 1 / 1024."""
+    _need_cuda()
+    src, idx, wgt, denom = _gossip_inputs(n, slots, dim, dtype, seed=n)
+    for den in (denom, None):
+        before = K.LAUNCHES["gossip_reduce"]
+        got = ops.gossip_reduce(src, idx, wgt, den)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["gossip_reduce"] == before + 1
+        assert torch.equal(got, ref.gossip_reduce(src, idx, wgt, den))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("slots", [64, 5000], ids=["shared", "global"])
+def test_cuda_gossip_reduce_wide_tables(dtype, slots):
+    """S = n (a resampled graph's table) and a table too wide for shared
+    memory, whose indices and weights are read from device memory."""
+    _need_cuda()
+    src, idx, wgt, denom = _gossip_inputs(64, slots, 520, dtype,
+                                          rows=slots, seed=slots)
+    got = ops.gossip_reduce(src, idx, wgt, denom)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.gossip_reduce(src, idx, wgt, denom))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_gossip_reduce_identity_form_and_unaligned(dtype):
+    _need_cuda()
+    rng = np.random.default_rng(7)
+    contrib = _card(rng.standard_normal((8 * 3, 1024)).astype(dtype))[0]
+    got = ops.gossip_reduce(contrib, slots=3)
+    assert torch.equal(got, ref.segment_reduce(contrib, 3))
+    flat = torch.from_numpy(np.concatenate(
+        [[0.0], rng.standard_normal(8 * 1024)]).astype(dtype)).cuda()[1:]
+    src = flat.reshape(8, 1024)
+    assert src.data_ptr() % 16 != 0 and src.is_contiguous()
+    _, idx, wgt, denom = _gossip_inputs(8, 3, 1024, dtype)
+    assert torch.equal(ops.gossip_reduce(src, idx, wgt, denom),
+                       ref.gossip_reduce(src, idx, wgt, denom))
+
+
+@pytest.mark.cuda
+def test_cuda_gossip_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_cuda()
+    src, idx, wgt, denom = _gossip_inputs(4, 3, 16, "float32")
+    with pytest.raises(ValueError, match="int64"):
+        ops.gossip_reduce(src, idx.int(), wgt, denom)
+    with pytest.raises(ValueError, match="int64"):
+        ops.gossip_reduce(src, idx.cpu(), wgt, denom)
+    with pytest.raises(ValueError, match="one \\[n, S\\] shape"):
+        ops.gossip_reduce(src, idx, wgt[:, :2].contiguous(), denom)
+    with pytest.raises(ValueError, match="denom"):
+        ops.gossip_reduce(src, idx, wgt, denom[:2])
+    with pytest.raises(ValueError, match="device or dtype"):
+        ops.gossip_reduce(src, idx, wgt.double(), denom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["ring:sparse", "er:0.5:t:sparse"])
+def test_cuda_sparse_mixing_matches_the_cpu(spec):
+    """The sparse lowering on the card (the kernel) against the same
+    reduce on the CPU (its plain version), with a masked client."""
+    _need_cuda()
+    from repro_torch.core.topology import TopoState, parse_topology
+
+    topo = parse_topology(spec, 8)
+    rng = np.random.default_rng(3)
+    tree = {"a": torch.from_numpy(rng.standard_normal((8, 5, 7))),
+            "b": torch.from_numpy(rng.standard_normal((8,)))}
+    w = torch.ones(8, dtype=torch.float64)
+    w[2] = 0.0
+    ts = TopoState(k=3)
+    want = topo.reduce(tree, w, ts)
+    before = K.LAUNCHES["gossip_reduce"]
+    got = topo.reduce({k: v.cuda() for k, v in tree.items()}, w.cuda(), ts)
+    assert K.LAUNCHES["gossip_reduce"] == before + 2
+    for k in tree:
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
+                                   rtol=0, atol=1e-12)

@@ -13,6 +13,10 @@ its rounding error scales with ``x``, not with ``d``: it is held within
 parameters run through the model's float32 casts (RMSNorm, RoPE, logits),
 so float64 is held to the same bounds.
 
+One round over a gossip graph (``ring:sparse`` on the arena,
+4 clients) is held to the same bounds: the sparse neighbor reduce runs
+through ``kernels/ops.py:gossip_reduce`` (its plain version here).
+
 The compressed round (``shift:q8`` x 0.8 participation) runs on a tiny LM
 (as ``tests/test_arena.py:200-238``): the arena against the per-leaf path
 inside the port, and the port against the JAX package for 3 rounds. Both
@@ -40,12 +44,15 @@ C, B, S, TAU, ROUNDS = 4, 2, 32, 2, 3
 ALPHA, CW = 3e-3, 0.05
 
 
-def _jax_run(dtype):
+def _jax_run(dtype, rounds=ROUNDS, **scenario):
     import jax
     import jax.numpy as jnp
 
     jax.config.update("jax_enable_x64", True)
     from repro.configs import get_config as jget
+    from repro.configs.base import FedScenario as JScenario
+    from repro.core.arena import Arena as JArena
+    from repro.core.arena import unpack as junpack
     from repro.core.fedcet import FedCET as JFedCET
     from repro.data.synthetic import make_hetero_lm_dataset
     from repro.models import build_model as jbuild
@@ -54,8 +61,9 @@ def _jax_run(dtype):
     model = jbuild(cfg)
     params = model.init(jax.random.key(0))
     ds = make_hetero_lm_dataset(cfg.vocab_size, C, S, B, seed=0)
-    tokens = [np.asarray(ds.sample_round(r, TAU)) for r in range(ROUNDS)]
-    algo = JFedCET(alpha=ALPHA, c=CW, tau=TAU, n_clients=C)
+    tokens = [np.asarray(ds.sample_round(r, TAU)) for r in range(rounds)]
+    algo = JScenario(**scenario).apply(
+        JFedCET(alpha=ALPHA, c=CW, tau=TAU, n_clients=C))
     grad_fn = jax.grad(model.loss)
     state = jax.jit(lambda p, b: algo.init(grad_fn, p, b))(
         params, {"tokens": tokens[0][0]})
@@ -63,11 +71,28 @@ def _jax_run(dtype):
     mean_loss = jax.jit(lambda x, t: jnp.mean(jax.vmap(model.loss)(
         x, {"tokens": t})))
     losses = []
-    for r in range(ROUNDS):
+    for r in range(rounds):
         state = step(state, {"tokens": tokens[r]})
-        losses.append(float(mean_loss(state.x, tokens[r][0])))
+        losses.append(float(mean_loss(algo.client_params(state),
+                                      tokens[r][0])))
+    d = junpack(state.d) if isinstance(state.d, JArena) else state.d
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    return to_np(params), tokens, to_np(state.x), to_np(state.d), losses
+    return (to_np(params), tokens, to_np(algo.client_params(state)),
+            to_np(d), losses)
+
+
+def _assert_lm_state_close(x, d, jx, jd):
+    """x within 1e-5 of each leaf's scale, d within 1e-5 * c * scale."""
+    import jax
+
+    for got_x, want_x, got_d, want_d in zip(
+            tree_leaves(x), jax.tree.leaves(jx),
+            tree_leaves(d), jax.tree.leaves(jd)):
+        scale = float(np.abs(want_x).max())
+        np.testing.assert_allclose(got_x.numpy(), want_x, rtol=1e-5,
+                                   atol=1e-5 * scale)
+        np.testing.assert_allclose(got_d.numpy(), want_d, rtol=0,
+                                   atol=1e-5 * CW * scale)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -85,17 +110,35 @@ def test_three_rounds_match_jax(dtype):
         losses.append(float(torch.mean(torch.func.vmap(model.loss)(
             state.x, {"tokens": b["tokens"][0]}))))
     assert state.t == ROUNDS * TAU  # init leaves t = 0
-    import jax
-
-    for got_x, want_x, got_d, want_d in zip(
-            tree_leaves(state.x), jax.tree.leaves(jx),
-            tree_leaves(state.d), jax.tree.leaves(jd)):
-        scale = float(np.abs(want_x).max())
-        np.testing.assert_allclose(got_x.numpy(), want_x, rtol=1e-5,
-                                   atol=1e-5 * scale)
-        np.testing.assert_allclose(got_d.numpy(), want_d, rtol=0,
-                                   atol=1e-5 * CW * scale)
+    _assert_lm_state_close(state.x, state.d, jx, jd)
     np.testing.assert_allclose(losses, jlosses, rtol=1e-6)
+
+
+def test_gossip_arena_round_matches_jax():
+    """One round with ``ring:sparse`` on the arena: the per-client
+    neighborhood means replace the star mean, and ``fedcet_comm`` takes
+    its one-client form (``m_bar`` shaped like ``m``)."""
+    from repro_torch.configs.base import FedScenario
+    from repro_torch.core.arena import Arena, unpack
+
+    scenario = dict(topology="ring:sparse", arena=True)
+    params, tokens, jx, jd, jlosses = _jax_run("float32", rounds=1,
+                                               **scenario)
+    model = build_model(get_config("fedlm-100m").reduced())
+    algo = FedScenario(**scenario).apply(
+        FedCET(alpha=ALPHA, c=CW, tau=TAU, n_clients=C))
+    assert algo.topology.lowering == "sparse" and algo.arena
+    grad_fn = torch.func.grad(model.loss)
+    state = algo.init(grad_fn, params_from_numpy(params),
+                      {"tokens": torch.tensor(tokens[0][0])})
+    b = {"tokens": torch.tensor(tokens[0])}
+    state = algo.round(grad_fn, state, b)
+    assert isinstance(state.d, Arena) and state.t == TAU
+    x = algo.client_params(state)
+    loss = float(torch.mean(torch.func.vmap(model.loss)(
+        x, {"tokens": b["tokens"][0]})))
+    _assert_lm_state_close(x, unpack(state.d), jx, jd)
+    np.testing.assert_allclose([loss], jlosses, rtol=1e-6)
 
 
 def test_run_training_end_to_end_on_cpu(capsys):
@@ -117,7 +160,7 @@ def test_entry_points_refuse_what_this_slice_does_not_run():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         run_training("fedlm-100m", steps=1, device="cpu", delay="fixed:2")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        FedCET(alpha=ALPHA, c=CW, tau=TAU, n_clients=C, topology="ring")
+        FedCET(alpha=ALPHA, c=CW, tau=TAU, n_clients=C, cohort=4)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_training("fedlm-100m", steps=1)
@@ -246,3 +289,30 @@ def test_compressed_sampled_round_matches_jax_tiny_lm():
         flagged += int(off.sum())
         total += off.size
     assert flagged / total <= 1e-3, (flagged, total)
+
+
+def test_topology_training_on_cpu(capsys):
+    """``--topology`` through ``run_training`` and the CLI: gossip bills
+    one message per directed edge up and no broadcast down; a hierarchy
+    adds its tier hops (8-bit up under ``shift:q8`` tiers, dense down)."""
+    hist = run_training("fedlm-100m", steps=1, n_clients=8, batch=1,
+                        seq_len=8, device="cpu", topology="ring:sparse",
+                        arena=True)
+    out = capsys.readouterr().out
+    n = hist["n_params"]
+    assert all(np.isfinite(hist["loss"]))
+    assert f"bits_up {8 * 2 * n * 32.0:.4g}" in out    # ring degree 2
+    assert hist["comm_bytes"][0] == int(8 * 2 * n * 32 / 8)
+    hist = run_training("fedlm-100m", steps=1, n_clients=8, batch=1,
+                        seq_len=8, device="cpu", topology="hier:g4",
+                        tier_compression="shift:q8")
+    up, down = (8 * 32.0 + 4 * 8.0) * n, (8 + 4) * 32.0 * n
+    assert f"bits_up {up:.4g}" in capsys.readouterr().out
+    assert hist["comm_bytes"][0] == int(up / 8) + int(down / 8)
+    main(["--arch", "fedlm-100m", "--steps", "1", "--clients", "8",
+          "--batch", "1", "--seq-len", "8", "--device", "cpu",
+          "--topology", "er:0.5:t:sparse"])
+    assert "final loss:" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="tier_compression"):
+        run_training("fedlm-100m", steps=1, n_clients=4, device="cpu",
+                     topology="ring", tier_compression="q8")
