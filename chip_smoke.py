@@ -14,14 +14,17 @@ of the JAX package. Phases, one JSON line each:
                fedlm-100m leaf ``[4, 14, 640, 2560]``, the arena
                ``[4, 104499, 1024]``, and path E's 8-client arena
                ``[8, 107006976]``: the gossip reduce with the 8-ring's
-               table, the triad, and the pair in its one-client form with a
-               per-client m_bar of m's shape) in float32
+               table, the triad, the pair in its one-client form with a
+               per-client m_bar of m's shape, and the telemetry sketch's
+               norms, histogram and top ids, run twice) in float32
                and float64, at ragged sizes and at the edge cases (zero
                scales, zero client weights, per-client dither, unaligned
                pointers, zero-weight pad slots, S in {1, 3, 5, n}, n in
-               {1, 8, 10, 1024}); kernel, plain and bound times from CUDA
-               events, and for the gossip reduce the time of torch.matmul
-               with the dense weighted matrix (the library yardstick);
+               {1, 8, 10, 13, 1024}, zero rows, norms past both edge bins);
+               kernel, plain and bound times from CUDA events, and the
+               library yardsticks: torch.matmul with the dense weighted
+               matrix for the gossip reduce, torch.linalg.vector_norm
+               (norms only) for the sketch;
 4. quadratic — FedCET on the paper's §IV problem in float64 through the
                kernels: uncompressed (400 rounds), ``shift:q8`` on the
                arena through the fused tail and per leaf (both must reach
@@ -33,6 +36,9 @@ of the JAX package. Phases, one JSON line each:
                rounds, < 1e-9, ``|mean_i d_i| <= 1e-10``) and ``hier:g5``
                (800 rounds, < 1e-9), and ``er:0.5:t:sparse`` against
                ``er:0.5:t`` (per-round errors within 1e-12 over 50 rounds);
+               FedCET on the arena with the population sketches (the sketch
+               kernel in float64, 400 rounds: < 1e-9, Lemma 2 residual
+               <= 1e-6, telemetry on equal to off bit for bit);
 5. parity    — one FedCET round of the reduced model on the card and on
                the CPU from the same parameters and tokens;
 6. prng      — the threefry dither of the whole fedlm-100m model, timed;
@@ -46,10 +52,17 @@ of the JAX package. Phases, one JSON line each:
                main path, ``ring:sparse`` on the arena (the gossip reduce
                kernel), (F) ``ring`` on the arena (the dense lowering,
                torch.matmul; its losses and its final drift d held against
-               E's), (G) ``hier:g4`` on the arena. Per round: loss,
-               time, the Lemma 2 residual and where the time goes
-               (gradients, each kernel, the dither, the scale pass,
-               pack/unpack, the topology's reduce).
+               E's), (G) ``hier:g4`` on the arena; (E2) path E again, for
+               its run-to-run gap; (H) path E with telemetry
+               (``jsonl``, ``hist:48``, ``--trace-rounds 3:4``): its final
+               x and d equal E's bit for bit (or within E's own gap), it
+               launches exactly E's kernels plus ``telemetry_sketch`` 10,
+               its JSONL renders with ``benchmarks/report.py`` and the
+               profiler trace of round 3 gives the top device kernels and
+               the device idle share. Per round: loss, time, the Lemma 2
+               residual and where the time goes (gradients, each kernel,
+               the dither, the scale pass, pack/unpack, the topology's
+               reduce, the loss, the telemetry and its sketch kernel).
 
 Then the kernels summary line, the ``nvidia-smi`` name/power-limit line and
 the final ``{"ok": true, ...}`` line. Any failed check raises: the script
@@ -61,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -98,7 +112,10 @@ KERNELS = {
                           "src/repro/kernels/fedcet_update.py:136"),
     "gossip_reduce": ("gossip_reduce.cu",
                       "src/repro/kernels/gossip_reduce.py:59"),
+    "telemetry_sketch": ("telemetry_reduce.cu",
+                         "src/repro/kernels/telemetry_reduce.py:93"),
 }
+SKETCH = dict(bins=48, lo=-12.0, hi=4.0, k=4)  # hist:48, the default topk
 
 
 class SmokeFailure(AssertionError):
@@ -314,6 +331,25 @@ def _case_gossip(shape, dtype, seed, slots=3, rows=None, ring=False,
             nbytes, 2 * slots * n * dim, library)
 
 
+def _case_sketch(shape, dtype, seed, unaligned=False, zero_rows=(0,)):
+    """(kernel, plain, bytes, flops, library) of a sketch case: rows whose
+    norms span 1e-15 .. 1e6 (past both edges of hist:48's range), some all
+    zero; the library call is torch.linalg.vector_norm (norms only)."""
+    from repro_torch.kernels import ops
+
+    n, dim = shape
+    (buf,) = _operands((n * dim + int(unaligned),), dtype, 1, seed)
+    x = buf[int(unaligned):].view(n, dim)
+    x.mul_(torch.logspace(-17, 4, n, dtype=dtype, device="cuda")[:, None])
+    x[list(z for z in zero_rows if z < n)] = 0.0
+    es, k = x.element_size(), min(SKETCH["k"], n)
+    nbytes = (n * dim + 2 * n + k) * es + (SKETCH["bins"] + k) * 4
+    return (lambda: ops.telemetry_sketch(x, impl="kernel", **SKETCH),
+            lambda: ops.telemetry_sketch(x, impl="ref", **SKETCH),
+            nbytes, 2 * n * dim,
+            lambda: (torch.linalg.vector_norm(x, dim=1),))
+
+
 #: labels of the cases timed (their first float32 case); "main" is the
 #: one the summary line reports.
 TIMED = ("main", "gossip_arena", "one_client_gossip_arena")
@@ -322,6 +358,26 @@ TIMED = ("main", "gossip_arena", "one_client_gossip_arena")
 def _cases(form):
     """(label, shape, dtype, builder) cases of one kernel form."""
     f32, f64 = torch.float32, torch.float64
+    if form == "telemetry_sketch":
+        k = _case_sketch
+
+        def with_(**kw):
+            return lambda sh, dt, i: k(sh, dt, i, **kw)
+
+        return [("main", GOSSIP_SHAPE, f32, k), ("main", GOSSIP_SHAPE, f64, k),
+                ("ragged", (8, 100_003), f32, k),
+                ("ragged", (8, 100_003), f64, k),
+                ("unaligned", (8, 4096), f32, with_(unaligned=True)),
+                ("unaligned", (13, 4099), f64, with_(unaligned=True)),
+                ("n_1", (1, 4096), f32, with_(zero_rows=())),
+                ("n_1", (1, 1030), f64, with_(zero_rows=())),
+                ("n_13", (13, 3 * 1024), f32, with_(zero_rows=(0, 5))),
+                ("n_13", (13, 3 * 1024), f64, k),
+                ("n_1024", (1024, 4096), f32,
+                 with_(zero_rows=tuple(range(0, 1024, 7)))),
+                ("n_1024", (1024, 1030), f64, k),
+                ("all_zero", (8, 2048), f32, with_(zero_rows=range(8))),
+                ("quadratic", (10, 1024), f64, k)]
     if form == "gossip_reduce":
         g = _case_gossip
 
@@ -394,6 +450,10 @@ def _cases(form):
              lambda sh, dt, i: t(sh, dt, i, mask=[False, False, False]))]
 
 
+#: forms with a reduction across blocks, held to bitwise equal repeats.
+REPEATED = ("telemetry_sketch",)
+
+
 def phase_kernels():
     """Every kernel form against its plain version; bitwise (tolerance 0)
     since the kernels are built with --fmad=false."""
@@ -406,12 +466,17 @@ def phase_kernels():
         for i, (label, shape, dtype, build) in enumerate(_cases(form)):
             kern, plain, nbytes, flops, *library = build(shape, dtype, i)
             library = library[0] if library else None
-            err = _max_err(kern(), plain())
+            got = kern()
+            err = _max_err(got, plain())
+            if form in REPEATED:
+                err = max(err, _max_err(kern(), got))
+            del got
             torch.cuda.synchronize()
             errs.append({"case": label, "shape": list(shape),
                          "dtype": str(dtype)[6:], "max_abs_err": err})
             check(err == 0.0, f"{form} {label} {shape} {dtype}: kernel "
-                              f"differs from its plain version by {err}")
+                              f"differs from its plain version (or from "
+                              f"its own repeat) by {err}")
             if (label in TIMED and label not in timing
                     and dtype == torch.float32):
                 p1, k1, k2, p2 = (time_ms(plain), time_ms(kern),
@@ -439,8 +504,9 @@ def phase_quadratic():
     and the compressed, sampled, arena-packed rounds of this slice."""
     from repro_torch.core import FedCET, max_weight_c
     from repro_torch.core.engine import (with_arena, with_compression,
-                                         with_participation)
+                                         with_participation, with_telemetry)
     from repro_torch.core.lr_search import lr_search
+    from repro_torch.core.telemetry import Telemetry
     from repro_torch.core.simulate import simulate_quadratic
     from repro_torch.data.quadratic import make_quadratic_problem
     from repro_torch.kernels import library as L
@@ -458,8 +524,11 @@ def phase_quadratic():
         "shift_q8_per_leaf": (shift(base), 400),
         "sampled_0.8": (sampled, 800),
         "shift_q8_arena_sampled_0.8": (shift(with_arena(sampled)), 800),
+        "arena": (with_arena(base), 400),
+        "arena_sketches": (with_telemetry(with_arena(base),
+                                          Telemetry(sketches="auto")), 400),
     }
-    finals, launches, curves = {}, {}, {}
+    finals, launches, curves, series = {}, {}, {}, {}
     for name, (algo, rounds) in runs.items():
         L.reset_launches()
         t0 = time.perf_counter()
@@ -468,6 +537,7 @@ def phase_quadratic():
         seconds = time.perf_counter() - t0
         launches[name] = {k: n for k, n in L.LAUNCHES.items() if n}
         finals[name], curves[name] = res.final_error, res.errors
+        series[name] = res.telemetry
         emit({"phase": "quadratic", "run": name, "rounds": rounds,
               "dtype": "float64", "alpha": alpha, "c": base.c,
               "final_error": res.final_error, "seconds": seconds,
@@ -478,7 +548,23 @@ def phase_quadratic():
     diff = float((plain.errors - curves["plain"]).abs().max())
     emit({"phase": "quadratic", "run": "plain_path_without_kernels",
           "final_error": plain.final_error, "max_diff_vs_kernels": diff})
-    for name in ("plain", "shift_q8_arena_fused", "shift_q8_per_leaf"):
+    tel = series["arena_sketches"]
+    resid = float(tel["invariant_residual"].max())
+    on_off = float((curves["arena_sketches"] - curves["arena"]).abs().max())
+    hist_ok = all(bool((tel[f"{s}_hist"].sum(dim=1) == problem.n_clients)
+                       .all()) for s in ("d_norm", "drift"))
+    emit({"phase": "quadratic", "run": "arena_sketch_checks",
+          "max_invariant_residual": resid, "on_vs_off_max_diff": on_off,
+          "final_drift_hist": tel["drift_hist"][-1].tolist(),
+          "final_d_norm_top_ids": tel["d_norm_top_ids"][-1].tolist()})
+    check(resid <= 1e-6, f"arena sketches: invariant residual {resid}")
+    check(on_off == 0.0, f"arena sketches: telemetry on differs from off "
+                         f"by {on_off}")
+    check(hist_ok, "arena sketches: a histogram does not count every client")
+    check(launches["arena_sketches"].get("telemetry_sketch") == 2 * 400,
+          f"arena sketches: launches {launches['arena_sketches']}")
+    for name in ("plain", "shift_q8_arena_fused", "shift_q8_per_leaf",
+                 "arena_sketches"):
         check(finals[name] < 1e-9,
               f"quadratic {name} did not reach the exact optimum: "
               f"{finals[name]}")
@@ -616,14 +702,18 @@ def phase_prng():
 
 class _Timeline:
     """CUDA-event intervals of the gradient evaluations, the kernel
-    wrappers, the dither draws, the scale pass, pack/unpack and the
-    topology's reduce, grouped per training round (closed by the round
-    callback). ``topology_ms`` CONTAINS ``gossip_ms`` (the kernel inside the
-    sparse reduce); the other intervals do not nest."""
+    wrappers, the dither draws, the scale pass, pack/unpack, the
+    topology's reduce, the logged loss and the telemetry's end-of-round
+    finalize, grouped per training round (closed by the round callback).
+    ``topology_ms`` CONTAINS ``gossip_ms`` (the kernel inside the sparse
+    reduce) and ``telemetry_ms`` contains ``sketch_ms`` (the sketch
+    wrapper); the other intervals do not nest. The in-round telemetry
+    captures (gradient and message norms) fall in ``other_ms``."""
 
     KEYS = ("grad", "fedcet_v", "fedcet_comm", "quantize", "round_tail",
-            "dither", "scale", "pack", "topology", "gossip")
-    NESTED = ("gossip",)
+            "dither", "scale", "pack", "topology", "gossip", "loss",
+            "telemetry", "sketch")
+    NESTED = ("gossip", "sketch")
 
     def __init__(self):
         self.open, self.rounds = [], []
@@ -650,8 +740,10 @@ class _Timeline:
 
 def _instrument(timeline):
     """Route the timed functions through ``timeline``; returns an undo."""
-    from repro_torch.core import arena, compressors, engine, prng, topology
+    from repro_torch.core import (arena, compressors, engine, prng,
+                                  telemetry, topology)
     from repro_torch.kernels import ops
+    from repro_torch.launch import train
 
     patches = [(engine, "vmap_grads",
                 lambda real: (lambda f: timeline.wrap(real(f), "grad"))),
@@ -665,7 +757,10 @@ def _instrument(timeline):
                (arena, "pack_rows", "pack"), (arena, "unpack", "pack"),
                (ops, "gossip_reduce", "gossip"),
                (topology.Topology, "reduce_and_advance", "topology"),
-               (topology.Hierarchical, "reduce_and_advance", "topology")]
+               (topology.Hierarchical, "reduce_and_advance", "topology"),
+               (train, "mean_client_loss", "loss"),
+               (telemetry.Telemetry, "finalize", "telemetry"),
+               (ops, "telemetry_sketch", "sketch")]
     saved = []
     for mod, name, how in patches:
         real = getattr(mod, name)
@@ -702,11 +797,26 @@ PATHS = {
     "G_hier_g4_arena": ({"topology": "hier:g4", "arena": True},
                         ("fedcet_v", "fedcet_comm"), TRAIN_TOPO),
 }
+SMOKE_DIR = ROOT / "build" / "smoke"   # git-ignored; H's JSONL and trace
+TELEMETRY_PATH = "H_ring_sparse_arena_telemetry"
+PATHS["E2_ring_sparse_arena_repeat"] = PATHS["E_ring_sparse_arena"]
+PATHS[TELEMETRY_PATH] = (
+    {"topology": "ring:sparse", "arena": True,
+     "telemetry": f"jsonl:{SMOKE_DIR / 'h.jsonl'},hist:48",
+     "trace_rounds": "3:4", "trace_dir": str(SMOKE_DIR / "trace")},
+    ("fedcet_v", "fedcet_comm", "gossip_reduce", "telemetry_sketch"),
+    TRAIN_TOPO)
+#: paths whose final x and d are compared (kept on the host).
+COMPARED = ("E_ring_sparse_arena", "F_ring_dense_arena",
+            "E2_ring_sparse_arena_repeat", TELEMETRY_PATH)
+_E_LAUNCHES = {"fedcet_v": 11, "fedcet_comm": 6, "gossip_reduce": 6}
 MAIN_PATH_LAUNCHES = {"B_shift_q8_arena": {"fedcet_v": 11,
                                            "fedcet_round_tail": 6},
-                      "E_ring_sparse_arena": {"fedcet_v": 11,
-                                              "fedcet_comm": 6,
-                                              "gossip_reduce": 6}}
+                      "E_ring_sparse_arena": _E_LAUNCHES,
+                      "E2_ring_sparse_arena_repeat": _E_LAUNCHES,
+                      # 5 rounds x (the d_norm and drift sketches).
+                      TELEMETRY_PATH: {**_E_LAUNCHES,
+                                       "telemetry_sketch": 10}}
 
 
 def _train_path(name, scenario, expected, config):
@@ -721,8 +831,9 @@ def _train_path(name, scenario, expected, config):
     def on_round(r, loss, comm, state):
         timeline.close_round()
         inner = state.inner if hasattr(state, "extras") else state
-        if r == config["steps"] - 1:
-            final["d"] = tree_leaves(inner.d)
+        if r == config["steps"] - 1 and name in COMPARED:
+            final["x"] = [t.cpu() for t in tree_leaves(inner.x)]
+            final["d"] = [t.cpu() for t in tree_leaves(inner.d)]
         norm = lambda ts: math.sqrt(sum(float(t.double().pow(2).sum())  # noqa: E731
                                         for t in ts))
         # arena data or per-leaf tensors: pads are 0, so the norms agree.
@@ -764,13 +875,93 @@ def _train_path(name, scenario, expected, config):
     check(len(hist["loss"]) == config["steps"], f"{name}: not 5 rounds")
     check(all(launches[f] > 0 for f in expected),
           f"{name}: a kernel of the path never launched: {launches}")
-    return launches, hist["loss"], final["d"]
+    return launches, hist["loss"], final, timeline.rounds
 
 
 def _state_gap(got, want):
-    """``||got - want|| / ||want||`` over the leaves, in float64."""
-    sq = lambda ts: sum(float(t.double().pow(2).sum()) for t in ts)  # noqa: E731
-    return math.sqrt(sq(a - b for a, b in zip(got, want)) / sq(want))
+    """``||got - want|| / ||want||`` over the leaves, in float64, on the
+    card (the leaves may wait on the host)."""
+    sq = lambda ts: sum(float(t.cuda().double().pow(2).sum())  # noqa: E731
+                        for t in ts)
+    return math.sqrt(sq(a.cuda() - b.cuda() for a, b in zip(got, want))
+                     / sq(want))
+
+
+def _bitwise(got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _read_trace(path):
+    """Top device kernels by time and the device idle share of a Chrome
+    trace: device activity (kernels, copies, fills) as a union of
+    intervals, over the profiled window (first to last event, host or
+    device) and over the device's own span (first to last device
+    event). The profiler's host-side recording lengthens the window."""
+    events = [e for e in json.load(open(path))["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = sorted((e for e in events
+                     if e.get("cat") in ("kernel", "gpu_memcpy",
+                                         "gpu_memset")),
+                    key=lambda e: e["ts"])
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, t0
+    for e in device:
+        lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
+        if hi > lo:
+            busy += hi - lo
+            end = hi
+    by_name: dict = {}
+    for e in device:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    out = {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+           "device_kernel_launches": sum(e.get("cat") == "kernel"
+                                         for e in device),
+           "top_kernels_ms": [[n[:120], d / 1e3] for n, d in top]}
+    if device:
+        span = end - device[0]["ts"]
+        out.update(device_idle_share=1.0 - busy / (t1 - t0),
+                   device_span_ms=span / 1e3,
+                   device_idle_share_in_span=1.0 - busy / span)
+    return out
+
+
+def _check_telemetry_path(rounds):
+    """H's JSONL (manifest, 5 round events with full histograms and a
+    finite consensus error), its report and its profiler trace."""
+    jsonl = SMOKE_DIR / "h.jsonl"
+    events = [json.loads(line) for line in open(jsonl)]
+    check(events[0]["event"] == "manifest", "H: the JSONL has no manifest")
+    evs = [e for e in events if e["event"] == "round"]
+    check([e["round"] for e in evs] == list(range(TRAIN_TOPO["steps"])),
+          f"H: round events {[e['round'] for e in evs]}")
+    for e in evs:
+        check(sum(e["d_norm_hist"]) == sum(e["drift_hist"])
+              == TRAIN_TOPO["n_clients"], f"H round {e['round']}: histograms "
+                                          f"{e['d_norm_hist']}, "
+                                          f"{e['drift_hist']}")
+        check(math.isfinite(e["consensus_err"]) and e["consensus_err"] > 0,
+              f"H round {e['round']}: consensus_err {e['consensus_err']}")
+    report = subprocess.run(
+        [sys.executable, str(ROOT / "benchmarks" / "report.py"), str(jsonl),
+         "-o", str(SMOKE_DIR / "h_report.html")], capture_output=True,
+        text=True, timeout=300)
+    check(report.returncode == 0, f"H: report.py failed: {report.stderr}")
+    trace = SMOKE_DIR / "trace" / "rounds_3-4.trace.json"
+    check(trace.exists(), f"H: no profiler trace at {trace}")
+    emit({"phase": "train", "path": TELEMETRY_PATH, "check": "telemetry",
+          "round_events": len(evs),
+          "warnings": sum(e["event"] == "monitor" for e in events),
+          "per_round": [{k: e[k] for k in ("round", "invariant_residual",
+                                            "consensus_err", "d_norm_p50",
+                                            "drift_max", "drift_top_ids")}
+                        for e in evs],
+          "telemetry_ms": [r["telemetry_ms"] for r in rounds],
+          "sketch_ms": [r["sketch_ms"] for r in rounds],
+          "trace": {"file": str(trace.relative_to(ROOT)),
+                    "bytes": trace.stat().st_size, **_read_trace(trace)}})
 
 
 def phase_train():
@@ -778,23 +969,49 @@ def phase_train():
     # c*alpha*(v - m_bar)); the drift d = sum_rounds c*(m - W m) carries it
     # at full scale: a reduce that returned m unmixed leaves d = 0, a wrong
     # table moves it by O(1). So E's final d is held against F's.
-    launches, losses = {}, {}
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    launches, losses, finals, rounds = {}, {}, {}, {}
     for name, (scenario, expected, config) in PATHS.items():
-        launches[name], losses[name], d = _train_path(name, scenario,
-                                                      expected, config)
-        if name == "E_ring_sparse_arena":  # on the host: F's peak stays F's
-            d_sparse = [t.cpu() for t in d]
-        if name == "F_ring_dense_arena":
-            d_gap = _state_gap([t.cuda() for t in d_sparse], d)
-            del d_sparse
-        del d
+        launches[name], losses[name], fin, rounds[name] = _train_path(
+            name, scenario, expected, config)
+        if name in COMPARED:  # on the host: the next path's peak stays its
+            finals[name] = fin
+        del fin
         torch.cuda.empty_cache()
+    e, e2, h = (finals[p] for p in ("E_ring_sparse_arena",
+                                    "E2_ring_sparse_arena_repeat",
+                                    TELEMETRY_PATH))
+    d_gap = _state_gap(e["d"], finals["F_ring_dense_arena"]["d"])
+    repeat = {k: _bitwise(e2[k], e[k]) for k in ("x", "d")}
+    same = {k: _bitwise(h[k], e[k]) for k in ("x", "d")}
+    gaps = {f"{k}_{who}": _state_gap(o[k], e[k]) for k in ("x", "d")
+            for who, o in (("E2", e2), ("H", h))}
+    split = lambda p: [r["other_ms"] + r["telemetry_ms"]  # noqa: E731
+                       for r in rounds[p]]
+    emit({"phase": "train", "check": "H_vs_E", "E2_bitwise_equal_E": repeat,
+          "H_bitwise_equal_E": same, "relative_gaps": gaps,
+          "H_loss_equal_E": losses[TELEMETRY_PATH]
+          == losses["E_ring_sparse_arena"],
+          "E_other_plus_telemetry_ms": split("E_ring_sparse_arena"),
+          "H_other_plus_telemetry_ms": split(TELEMETRY_PATH)})
+    for k in ("x", "d"):
+        if repeat[k]:
+            check(same[k], f"H's final {k} differs from E's, though E "
+                           f"repeats bit for bit (gap {gaps[k + '_H']})")
+        else:
+            check(gaps[k + "_H"] <= gaps[k + "_E2"],
+                  f"H's final {k} gap {gaps[k + '_H']} exceeds E's own "
+                  f"run-to-run gap {gaps[k + '_E2']}")
+    _check_telemetry_path(rounds[TELEMETRY_PATH])
     for name, counts in MAIN_PATH_LAUNCHES.items():
         want = {f: counts.get(f, 0) for f in launches[name]}
         check(launches[name] == want,
               f"{name} launches {launches[name]}, expected {want}")
     check(launches["F_ring_dense_arena"]["gossip_reduce"] == 0,
           "the dense lowering launched the gossip reduce")
+    check(all(n["telemetry_sketch"] == 0 for p, n in launches.items()
+              if p != TELEMETRY_PATH),
+          "a path without telemetry launched the sketch kernel")
     rel = max(abs(a - b) / abs(b) for a, b in
               zip(losses["F_ring_dense_arena"], losses["E_ring_sparse_arena"]))
     emit({"phase": "train", "check": "F_vs_E",
@@ -812,7 +1029,8 @@ OWNER = {"fedcet_v": "B_shift_q8_arena", "fedcet_comm": "A_dense",
          "stochastic_quantize": "C_shift_q8_per_leaf_p0.75",
          "stochastic_quantize_rows": "D_q8_arena",
          "fedcet_round_tail": "B_shift_q8_arena",
-         "gossip_reduce": "E_ring_sparse_arena"}
+         "gossip_reduce": "E_ring_sparse_arena",
+         "telemetry_sketch": TELEMETRY_PATH}
 
 
 def main() -> int:

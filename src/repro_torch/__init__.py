@@ -19,6 +19,10 @@ topologies (``core/topology.py``: star, hierarchical with tier
 recompression, gossip mixing with dense and sparse lowerings), the NIDS
 spec (``core/baselines/nids.py``), topology-aware accounting, and a CUDA
 kernel for the gossip neighbor reduce (``kernels/csrc/gossip_reduce.cu``).
+Slice 4: the in-round telemetry (``core/telemetry.py``: metrics, sketches,
+monitors, sinks, the profiler window; ``CommMeter``) on the training path,
+and a CUDA kernel for the per-client norm-histogram sketch
+(``kernels/csrc/telemetry_reduce.cu``).
 """
 
 import torch

@@ -129,7 +129,6 @@ _SCENARIO_LATER = {
     "delay": ("none", "the staleness slice"),
     "stale_policy": ("last", "the staleness slice"),
     "cohort": ("none", "the cohort slice"),
-    "telemetry": (False, "the telemetry slice"),
 }
 
 
@@ -142,12 +141,15 @@ class FedScenario:
     geometry (``topology``, a ``core/topology.py:parse_topology`` spec:
     ``"star"``, ``"hier:g8"``, ``"ring"``, ``"ring:sparse"``,
     ``"er:0.4:t"``; ``tier_compression`` re-compresses a hierarchy's
-    interior tiers), and the seed of their random schedules.
+    interior tiers), the in-round telemetry spec (``telemetry``: ``True``,
+    a ``core/telemetry.py:Telemetry`` or a sink spec string such as
+    ``"jsonl:run.jsonl,hist:48"``), and the seed of their random schedules.
 
-    The other fields (delay and stale policy, cohort, compression plans,
-    telemetry) mirror the reference and must stay at their defaults:
-    anything else raises "not yet ported". ``apply`` composes the scenario
-    onto any engine algorithm, in the reference's order."""
+    The other fields (delay and stale policy, cohort, compression plans)
+    mirror the reference and must stay at their defaults: anything else
+    raises "not yet ported". ``apply`` composes the scenario onto any
+    engine algorithm, in the reference's order (telemetry last: an
+    observer of the composed round)."""
 
     compression: str = "none"
     compression_plan: Any = "none"
@@ -173,12 +175,13 @@ class FedScenario:
     def apply(self, algo):
         from repro_torch.core.engine import (with_arena, with_compression,
                                              with_participation,
-                                             with_topology)
+                                             with_telemetry, with_topology)
 
         algo = with_arena(algo, self.arena)
         algo = with_topology(algo, self.topology, seed=self.seed,
                              tier_compression=self.tier_compression)
         algo = with_participation(algo, self.participation, seed=self.seed)
-        return with_compression(algo, compressor=self.compression,
+        algo = with_compression(algo, compressor=self.compression,
                                 error_feedback=self.error_feedback,
                                 seed=self.seed)
+        return with_telemetry(algo, self.telemetry)

@@ -1,5 +1,5 @@
-"""Communication accounting (port of ``src/repro/core/comm.py:64-181,
-320-342``; ``CommMeter`` is not ported yet).
+"""Communication accounting (port of ``src/repro/core/comm.py:64-342``:
+the bit-true helpers and ``CommMeter``).
 
 The paper's headline (Remark 2) is a communication-volume claim: FedCET
 moves ONE model-sized vector per client per round each way. These helpers
@@ -15,7 +15,11 @@ upward at the tier compressor's width, downward dense f32.
 
 from __future__ import annotations
 
+import dataclasses
+
 from torch.utils import _pytree as pytree
+
+from repro_torch.utils.tree import tree_num_params
 
 
 def leaf_name(path) -> str:
@@ -125,3 +129,81 @@ def comm_bits_per_round(algo, n_params: int, n_clients: int = 1,
         n_clients * down_mult * 32.0 * receive_frac_of(algo)
         + agg_msgs * 32.0)
     return {"up_bits": up, "down_bits": down, "total_bits": up + down}
+
+
+@dataclasses.dataclass
+class CommMeter:
+    """Accumulates transmitted bytes across rounds for one algorithm, in
+    the reference's bit-true mode (``for_params(params, algo=...)``): the
+    per-vector uplink cost is ``n_params * bits_up / 8`` bytes with
+    ``bits_up`` from the compressor stack's exact per-leaf wire bits
+    (``leaf_bits``), times the sampling duty cycle and the topology's
+    traffic shape (gossip degree up, no broadcast down; a hierarchy's
+    tier hops, up at the tier compressor's width and down dense f32).
+    The reference's legacy dense mode (``itemsize`` x an explicit
+    ``up_frac`` per tick) serves no port caller and is not ported."""
+
+    n_params: int
+    n_clients: int = 1
+    bits_up: float = 32.0
+    bits_down: float = 32.0
+    #: expected fraction of rounds a client's uplink lands / it receives.
+    up_duty: float = 1.0
+    down_duty: float = 1.0
+    #: first-hop uplink messages per client, downlink client-hop
+    #: multiplier, aggregator-tier messages per vector and their width.
+    up_mult: float = 1.0
+    down_mult: float = 1.0
+    agg_msgs: float = 0.0
+    tier_bits_up: float = 32.0
+    #: exact per-leaf uplink wire bits for one client's one UP vector, in
+    #: leaf flatten order; ``bits_up == sum(leaf_bits) / n_params``.
+    leaf_bits: tuple | None = None
+    rounds: int = 0
+    bytes_up: int = 0
+    bytes_down: int = 0
+
+    @classmethod
+    def for_params(cls, params, *, algo, n_clients: int = 1) -> "CommMeter":
+        """Bit-true meter for one parameter tree under ``algo``."""
+        topo = topology_of(algo)
+        n_params = tree_num_params(params)
+        lb = message_leaf_bits_of(algo, leaf_info_of(params))
+        bits_up = (sum(lb) / float(n_params) if lb
+                   else bits_per_coord_of(algo))
+        return cls(n_params=n_params, n_clients=n_clients, bits_up=bits_up,
+                   leaf_bits=tuple(lb) if lb else None,
+                   bits_down=32.0 * float(getattr(algo, "down_frac", 1.0)),
+                   up_duty=transmit_frac_of(algo),
+                   down_duty=receive_frac_of(algo),
+                   up_mult=(topo.client_up_mult(n_clients)
+                            if topo is not None else 1.0),
+                   down_mult=(topo.broadcast_mult(n_clients)
+                              if topo is not None else 1.0),
+                   agg_msgs=float(sum(m for _, m in
+                                      topo.aggregator_hops(n_clients))
+                                  if topo is not None else 0.0),
+                   tier_bits_up=(tier_bits_of(topo)
+                                 if topo is not None else 32.0))
+
+    def tick(self, vectors_up: int, vectors_down: int) -> None:
+        """Record one communication round."""
+        self.rounds += 1
+        per_coord = self.n_params * self.n_clients
+        agg_bits_up = self.agg_msgs * self.n_params * self.tier_bits_up
+        agg_bits_down = self.agg_msgs * self.n_params * 32.0
+        self.bytes_up += int(vectors_up * (per_coord * self.up_mult
+                                           * self.bits_up * self.up_duty
+                                           + agg_bits_up) / 8.0)
+        self.bytes_down += int(vectors_down * (per_coord * self.down_mult
+                                               * self.bits_down
+                                               * self.down_duty
+                                               + agg_bits_down) / 8.0)
+
+    def tick_round(self, algo) -> None:
+        """Record one round for ``algo``."""
+        self.tick(algo.vectors_up, algo.vectors_down)
+
+    @property
+    def total(self) -> int:
+        return self.bytes_up + self.bytes_down

@@ -40,12 +40,18 @@ Composable factories, as in the reference:
   through ``reduce_and_advance``, and ``begin_round`` gets the read-only
   ``reduce``.
 
+* :func:`with_telemetry` attaches the in-round telemetry spec of
+  ``core/telemetry.py``: the round captures gradient and message norms,
+  compression error and the participation count onto the tape the round
+  runner opens, and :func:`make_round_runner` stacks the finalized
+  per-round metrics (invariant residual, consensus error, sketches) next
+  to its own. With no spec attached no capture op runs.
+
 PyTorch runs eagerly, so the reference's ``lax.scan`` over local steps and
 over rounds become Python loops, and the step counter ``t`` is a Python
 int: every PRNG key of a round is derived on the host, and only the bulk
-draws run on the card. Delay, cohort and telemetry stay as fields, and
-setting any of them raises ``NotImplementedError`` naming the slice that
-ports it.
+draws run on the card. Delay and cohort stay as fields, and setting either
+raises ``NotImplementedError`` naming the slice that ports it.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ import torch
 
 from repro_torch.core import arena as ar
 from repro_torch.core import prng
+from repro_torch.core import telemetry as tele
 from repro_torch.core.api import GradFn, vmap_grads
 from repro_torch.core.topology import parse_topology
 from repro_torch.utils.tree import tree_client_mean, tree_leaves, tree_map
@@ -65,7 +72,6 @@ from repro_torch.utils.tree import tree_client_mean, tree_leaves, tree_map
 _LATER = {
     "delay": "the staleness slice",
     "cohort": "the cohort slice",
-    "telemetry": "the telemetry slice",
     "spmd_client_axes": "the multi-GPU launch slice",
 }
 
@@ -363,18 +369,32 @@ class RoundEngine:
     # ------------------------------------------------------------- plumbing
     def _grad(self, grad_fn: GradFn) -> GradFn:
         gf = vmap_grads(grad_fn)
-        if not self.arena:
+        if self.arena:
+            base = gf
+
+            # the model-apply boundary: the loss sees the real tree (views
+            # of the arena), the engine sees the arena; the repack is the
+            # one copy per call.
+            def arena_gf(x, batch):
+                if not isinstance(x, ar.Arena):
+                    return base(x, batch)
+                return ar.pack(base(ar.unpack(x), batch), x.layout)
+
+            gf = arena_gf
+        if self.telemetry is None:
             return gf
+        inner_gf = gf
 
-        # the model-apply boundary: the loss sees the real tree (views of
-        # the arena), the engine sees the arena; the repack is the one
-        # copy per call.
-        def arena_gf(x, batch):
-            if not isinstance(x, ar.Arena):
-                return gf(x, batch)
-            return ar.pack(gf(ar.unpack(x), batch), x.layout)
+        # a no-op outside the runner's tape and inside the muted tau-1
+        # local steps; an Arena gradient's zero pads make the packed norm
+        # equal the per-leaf norm.
+        def recording_gf(x, batch):
+            g = inner_gf(x, batch)
+            if tele.collecting():
+                tele.capture("grad_norm", tele.mean_client_norm(g))
+            return g
 
-        return arena_gf
+        return recording_gf
 
     def _init_extras(self, inner) -> tuple:
         """Per-transform extra state, shaped like the wire message."""
@@ -393,15 +413,32 @@ class RoundEngine:
         no topology the spec's fused tail may take the whole seam (it
         computes the star mean). Returns ``(inner, extras, tstate)``."""
         msg, mctx = self.message(gf, inner, batch, rctx)
+        # observer-only telemetry: rec is False when no spec is attached or
+        # no tape is active (init, direct round calls).
+        rec = self.telemetry is not None and tele.collecting()
+        if rec:
+            tele.capture("msg_norm", tele.mean_client_norm(msg))
+            if self.telemetry.leaf_stats:
+                tele.capture("leaf_msg_norm", tele.leaf_client_norms(msg))
         if self.arena and self.topology is None:
             fused = self._fused_tail(inner, msg, mctx, extras, step, mask)
             if fused is not None:
                 inner, new_extras = fused
                 return inner, tuple(new_extras), tstate
+        raw = msg
         new_extras = []
         for t, e in zip(self.transforms, extras):
             msg, e = t.apply(msg, e, step)
             new_extras.append(e)
+        if rec and self.transforms:
+            diff = tree_map(lambda a, b: a - b, msg, raw)
+            tele.capture("compress_err", tele.mean_client_norm(diff))
+            if self.telemetry.wants_sketch("compress_err"):
+                tele.capture("compress_err_clients",
+                             torch.sqrt(tele.client_sq_norms(diff)))
+            if self.telemetry.leaf_stats:
+                tele.capture("leaf_compress_err",
+                             tele.leaf_client_norms(diff))
         if self.topology is not None:
             msg_bar, tstate = self.topology.reduce_and_advance(
                 msg, self._topo_weights(mask, tree_leaves(msg)[0]), tstate)
@@ -474,12 +511,22 @@ class RoundEngine:
         like = tree_leaves(self.message_like(inner))[0]
         mask = self._mask(step0, like)
         agg = self._aggregator(mask, tstate, like)
+        if self.telemetry is not None and tele.collecting():
+            tele.capture("participating",
+                         mask.to(torch.int32).sum(dtype=torch.int32)
+                         if mask is not None
+                         else torch.tensor(self.n_clients, dtype=torch.int32,
+                                           device=like.device))
         frozen_inner, frozen_extras = inner, extras
         inner, rctx = self.begin_round(
             gf, inner, tree_map(lambda b: b[0], batches), agg)
-        for k in range(self.tau - 1):
-            inner = self.local_step(gf, inner,
-                                    tree_map(lambda b: b[k], batches), rctx)
+        # muted, as the reference's local lax.scan: grad_norm is the
+        # aggregating step's.
+        with tele.muted():
+            for k in range(self.tau - 1):
+                inner = self.local_step(gf, inner,
+                                        tree_map(lambda b: b[k], batches),
+                                        rctx)
         last_b = tree_map(lambda b: b[self.tau - 1], batches)
         inner, extras, tstate = self._comm_step(
             gf, inner, extras, last_b, rctx, agg, step=step0, tstate=tstate,
@@ -578,6 +625,22 @@ def with_arena(algo: RoundEngine, enable: bool = True) -> RoundEngine:
     return dataclasses.replace(algo, arena=True)
 
 
+def with_telemetry(algo: RoundEngine, telemetry=True) -> RoundEngine:
+    """In-round telemetry for ANY engine algorithm (see
+    ``core/telemetry.py``): the round captures per-round metrics
+    (gradient / message norms, compression error, participation, the
+    ``sum_i d_i`` invariant residual, the consensus error, the sketches)
+    onto the runner's tape, as device tensors, with no extra algorithm
+    state. ``telemetry`` is ``True``, a
+    :class:`~repro_torch.core.telemetry.Telemetry` spec or a truthy spec
+    string; disabled specs (``None`` / ``False`` / ``"none"`` / ``"off"``)
+    return the algorithm object unchanged."""
+    spec = tele.parse_telemetry(telemetry)
+    if spec is None:
+        return algo
+    return dataclasses.replace(algo, telemetry=spec)
+
+
 # --------------------------------------------------------- multi-round driver
 def make_round_runner(algo, grad_fn: GradFn, *, metric_fn=None,
                       repeat: bool = False, metric_with_batch: bool = False):
@@ -590,33 +653,54 @@ def make_round_runner(algo, grad_fn: GradFn, *, metric_fn=None,
 
     ``metric_fn(state)`` (or ``metric_fn(state, round_batches)`` with
     ``metric_with_batch``) runs after every round; its tensor results are
-    stacked into the second return value (``None`` without a hook)."""
+    stacked into the second return value (``None`` without a hook).
+
+    With telemetry attached (``with_telemetry``) each round runs under a
+    :func:`~repro_torch.core.telemetry.collect` tape and the second return
+    value becomes ``{"metric": ..., "telemetry": {name: [rounds, ...]}}``
+    (split it with :func:`~repro_torch.core.telemetry.split_metrics`);
+    without telemetry it is exactly the plain structure."""
+    tel = getattr(algo, "telemetry", None)
 
     def _metric(s, b):
         if metric_fn is None:
             return None
         return metric_fn(s, b) if metric_with_batch else metric_fn(s)
 
-    def _stack(ys):
-        return None if metric_fn is None else torch.stack(ys)
+    def _round(s, b):
+        if tel is None:
+            return algo.round(grad_fn, s, b), None
+        with tele.collect() as tape:
+            s = algo.round(grad_fn, s, b)
+        return s, tel.finalize(tape, algo, s)
+
+    def _stack(ys, tls):
+        m = None if metric_fn is None else torch.stack(ys)
+        if tel is None:
+            return m
+        return {"metric": m,
+                "telemetry": {k: torch.stack([t[k] for t in tls])
+                              for k in tls[0]} if tls else {}}
 
     if repeat:
         def run(state, batches, rounds):
-            ys = []
+            ys, tls = [], []
             for _ in range(rounds):
-                state = algo.round(grad_fn, state, batches)
+                state, tl = _round(state, batches)
                 ys.append(_metric(state, batches))
-            return state, _stack(ys)
+                tls.append(tl)
+            return state, _stack(ys, tls)
 
         return run
 
     def run(state, batches):
-        ys = []
+        ys, tls = [], []
         for r in range(tree_leaves(batches)[0].shape[0]):
             b = tree_map(lambda a: a[r], batches)
-            state = algo.round(grad_fn, state, b)
+            state, tl = _round(state, b)
             ys.append(_metric(state, b))
-        return state, _stack(ys)
+            tls.append(tl)
+        return state, _stack(ys, tls)
 
     return run
 

@@ -3,7 +3,9 @@
 
 Runs a FederatedAlgorithm against the paper's quadratic problem for K
 communication rounds through ``engine.run_rounds``, full-batch, with the
-paper's error e(k) = || (1/N) sum_i x_i(k tau) - x* ||.
+paper's error e(k) = || (1/N) sum_i x_i(k tau) - x* ||. With telemetry
+attached (``with_telemetry``) the result carries the stacked per-round
+series.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.engine import run_rounds
+from repro_torch.core.telemetry import split_metrics
 from repro_torch.data.quadratic import QuadraticProblem
 from repro_torch.utils.tree import tree_map
 
@@ -24,6 +27,10 @@ class SimResult:
     errors: torch.Tensor     # [rounds+1] e(k) = ||mean_i x_i(k tau) - x*||
     state: Any               # final algorithm state
     bytes_per_round: int     # per the algorithm's declared vectors
+    #: stacked per-round telemetry series (dict of [rounds, ...] tensors)
+    #: when the algorithm has ``with_telemetry`` attached, else None; feed
+    #: it to ``core/telemetry.py:drain`` for sinks and monitors.
+    telemetry: Any = None
 
     @property
     def final_error(self) -> float:
@@ -49,10 +56,11 @@ def simulate_quadratic(algo, problem: QuadraticProblem, rounds: int, *,
     def err(state) -> torch.Tensor:
         return torch.linalg.norm(algo.global_params(state) - x_star)
 
-    final_state, errs = run_rounds(algo, grad_fn, state0, batches,
-                                   rounds=rounds, metric_fn=err)
+    final_state, ys = run_rounds(algo, grad_fn, state0, batches,
+                                 rounds=rounds, metric_fn=err)
+    errs, telemetry = split_metrics(algo, ys)
     errors = torch.cat([err(state0)[None], errs])
     n_bytes = ((algo.vectors_up + algo.vectors_down) * problem.dim * 4
                * problem.n_clients)
     return SimResult(errors=errors, state=final_state,
-                     bytes_per_round=n_bytes)
+                     bytes_per_round=n_bytes, telemetry=telemetry)

@@ -9,7 +9,7 @@ named by a hash over all sources, headers and flags, so editing any of
 them rebuilds it. Nothing is built or loaded at import time.
 
 Each kernel wrapper (``kernels/fedcet_update.py``, ``kernels/quantize.py``,
-``kernels/gossip_reduce.py``) checks device, dtype, contiguity and shape,
+``kernels/gossip_reduce.py``, ``kernels/telemetry_reduce.py``) checks device, dtype, contiguity and shape,
 allocates its outputs with ``torch.empty``, launches on PyTorch's current
 stream, raises if the launch reports an error, and adds one to its entry
 of :data:`LAUNCHES`.
@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: launches per kernel form (plain integers; reset with reset_launches()).
 LAUNCHES = {"fedcet_v": 0, "fedcet_comm": 0, "fedcet_comm4": 0,
             "stochastic_quantize": 0, "stochastic_quantize_rows": 0,
-            "fedcet_round_tail": 0, "gossip_reduce": 0}
+            "fedcet_round_tail": 0, "gossip_reduce": 0,
+            "telemetry_sketch": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -54,6 +55,8 @@ _SIGNATURES = {
     "stochastic_quantize": [_ptr] * 4 + [_i32, _i64, _i64, _i64, _i32, _i32,
                                          _ptr],
     "gossip_reduce": [_ptr] * 5 + [_i64, _i64, _i64, _i32, _ptr],
+    "telemetry_sketch": [_ptr] * 4 + [_i64, _i64, _i32, _i32, "T", "T", _i32,
+                                      _ptr],
 }
 #: counted forms that share another form's C entry point.
 _ENTRY = {"fedcet_comm4": "fedcet_comm",

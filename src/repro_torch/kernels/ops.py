@@ -1,7 +1,7 @@
 """Public wrappers of the port's kernels (port of
 ``src/repro/kernels/ops.py``: ``fedcet_v``, ``fedcet_comm``,
 ``stochastic_quantize``, ``stochastic_quantize_rows``,
-``fedcet_round_tail`` and ``gossip_reduce``).
+``fedcet_round_tail``, ``gossip_reduce`` and ``telemetry_sketch``).
 
 ``impl`` selects the implementation:
 
@@ -24,6 +24,7 @@ from repro_torch.kernels import fedcet_update as K
 from repro_torch.kernels import gossip_reduce as KG
 from repro_torch.kernels import quantize as KQ
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import telemetry_reduce as KT
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -119,3 +120,34 @@ def gossip_reduce(src, idx=None, wgt=None, denom=None, *, slots=None,
     if _use_kernel(impl, src):
         return KG.gossip_reduce(src, idx, wgt, denom)
     return R.gossip_reduce(src, idx, wgt, denom)
+
+
+def telemetry_sketch(data, *, bins: int, lo: float, hi: float, k: int,
+                     impl: str = "auto"):
+    """One-pass per-client distribution sketch over the client store (see
+    kernels/telemetry_reduce.py; plain version: kernels/ref.py:
+    client_sketch). ``data`` is ``[clients, ...]``, typically the arena's
+    ``[clients, rows, 1024]`` buffer, flattened per client here (zero pad
+    entries contribute 0 to the norms).
+
+    Returns ``(norms [clients], hist [bins] int32, top_vals [k], top_ids
+    [k] int32)``: the per-client ``||x_i||``, their log10 histogram over
+    ``[10^lo, 10^hi)`` and the k largest with their client indices. The
+    top-k runs on the ``[clients]`` norms outside the kernel, as a stable
+    descending sort, so ties go to the lower client index as in
+    ``jax.lax.top_k``."""
+    flat = data.reshape(data.shape[0], -1)
+    if _use_kernel(impl, flat):
+        sq, hist = KT.client_sketch(flat, bins=bins, lo=lo, hi=hi)
+    else:
+        sq, hist = R.client_sketch(flat, bins=bins, lo=lo, hi=hi)
+    norms = torch.sqrt(sq)
+    return (norms, hist) + top_k(norms, k)
+
+
+def top_k(vals, k: int):
+    """The ``min(k, n)`` largest of ``vals`` ``[n]`` and their int32
+    indices, by a stable descending sort: ties go to the lower index, as
+    in ``jax.lax.top_k`` (``torch.topk`` leaves their order open)."""
+    srt, order = torch.sort(vals, descending=True, stable=True)
+    return srt[:k], order[:k].to(torch.int32)

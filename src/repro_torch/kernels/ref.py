@@ -1,10 +1,16 @@
 """Plain PyTorch versions of the port's kernels (port of
-``src/repro/kernels/ref.py:8-59, 79-101``), term for term: the CPU path of
+``src/repro/kernels/ref.py:8-59, 79-119``), term for term: the CPU path of
 ``kernels/ops.py`` and the yardstick the CUDA kernels are held against."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+#: threads per block of the client sketch (``csrc/telemetry_reduce.cu``)
+#: and the block count it aims for over all clients.
+SKETCH_THREADS = 256
+SKETCH_BLOCKS = 1024
 
 
 def fedcet_v(x, g, d, alpha: float):
@@ -113,3 +119,57 @@ def segment_reduce(vals, slots: int):
     for s in range(1, slots):
         out = out + v[:, s]
     return out
+
+
+def sketch_geometry(n: int, d: int, itemsize: int) -> tuple[int, int]:
+    """``(nblk, lanes)`` of the client sketch over ``[n, d]``: ``lanes`` =
+    16 / itemsize values per thread, and ``nblk`` blocks per client, a
+    power of two near ``SKETCH_BLOCKS / n`` and no more than one block per
+    ``SKETCH_THREADS * lanes`` elements of the row."""
+    lanes = 16 // itemsize
+    steps = max(1, -(-d // (SKETCH_THREADS * lanes)))
+    want = min(max(1, SKETCH_BLOCKS // max(n, 1)), steps)
+    return 1 << (want.bit_length() - 1), lanes
+
+
+def log_histogram(vals, bins: int, lo: float, hi: float):
+    """``[bins]`` int32 counts of the non-negative ``vals`` over log10-spaced
+    bins covering ``[10^lo, 10^hi)``, by the reference's shared binning
+    formula ``clip(floor((log10(v) - lo) * bins / (hi - lo)), 0, bins - 1)``
+    in ``vals``' dtype: zeros take ``lo`` (bin 0), out-of-range values clip
+    to the edge bins. The CUDA kernel bins by the same expression."""
+    logs = torch.where(vals > 0, torch.log10(vals), lo)
+    idx = torch.clamp(torch.floor((logs - lo) * (bins / (hi - lo))), 0,
+                      bins - 1)
+    return torch.bincount(idx.to(torch.int64), minlength=bins).to(
+        torch.int32)
+
+
+def client_sketch(x, *, bins: int, lo: float, hi: float):
+    """Per-client squared norm + log-histogram of the norms over the
+    flattened client store ``x`` ``[clients, D]``. Returns ``(sq_norms
+    [clients], hist [bins] int32)``.
+
+    The sum runs in the CUDA kernel's fixed order (``csrc/
+    telemetry_reduce.cu``), so the card check holds a tolerance of 0: with
+    ``(nblk, W)`` from :func:`sketch_geometry` and ``S = nblk * 256 * W``,
+    the squares of the row (zero-padded to whole ``S`` strides) are added
+    stride by stride into ``[nblk, 256, W]`` accumulators, which then
+    reduce by halving trees over the ``W`` lanes, the 256 threads and the
+    ``nblk`` blocks. The reference's plain ``sum(x * x, axis=1)`` is the
+    same function in another order."""
+    n, d = x.shape
+    nblk, w = sketch_geometry(n, d, x.element_size())
+    stride = nblk * SKETCH_THREADS * w
+    acc = torch.zeros((n, stride), dtype=x.dtype, device=x.device)
+    for k in range(0, d, stride):
+        part = x[:, k:k + stride]
+        acc = acc + F.pad(part * part, (0, stride - part.shape[1]))
+    a = acc.reshape(n, nblk, SKETCH_THREADS, w)
+    for axis_len in (w, SKETCH_THREADS, nblk):
+        h = axis_len // 2
+        while h:
+            a = a[..., :h] + a[..., h:2 * h]
+            h //= 2
+        a = a[..., 0]
+    return a, log_histogram(torch.sqrt(a), bins, lo, hi)

@@ -10,13 +10,15 @@ billed bit-true from the attached compressor and topology
 (``core/comm.py``: gossip bills one message per directed edge, a
 hierarchy its aggregator tiers).
 
-The synchronous round takes five scenario options of the reference:
-``compression`` (a ``core/compressors.py`` spec: ``shift:q8``, ``q8``,
-``pq8``), ``participation``, ``arena``, ``topology`` (a
-``core/topology.py`` spec: ``hier:g8``, ``ring``, ``ring:sparse``,
-``torus``, ``er:0.4:t``) and ``tier_compression``, composed by
-``configs/base.py:FedScenario``. The others (delay, cohort, compression
-plans, telemetry, tracing, checkpoints) raise "not yet ported" when set to
+The synchronous round takes the reference's ``compression`` (a
+``core/compressors.py`` spec: ``shift:q8``, ``q8``, ``pq8``),
+``participation``, ``arena``, ``topology`` (a ``core/topology.py`` spec:
+``hier:g8``, ``ring``, ``ring:sparse``, ``torus``, ``er:0.4:t``) and
+``tier_compression``, composed by ``configs/base.py:FedScenario``, and its
+in-round telemetry (``telemetry``, a ``core/telemetry.py`` sink spec such
+as ``jsonl:run.jsonl,hist:48``) with the profiler window
+(``trace_rounds``, ``trace_dir``). The other options (delay, cohort,
+compression plans, checkpoints) raise "not yet ported" when set to
 anything but their default. The mesh launcher (``make_plan``,
 ``lower_train_step``) waits for a multi-GPU slice.
 
@@ -24,7 +26,8 @@ Run as a script:
     python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
         --compression shift:q8 --arena
     python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
-        --clients 8 --batch 4 --topology ring:sparse --arena
+        --clients 8 --batch 4 --topology ring:sparse --arena \
+        --telemetry jsonl:run.jsonl,hist:48 --trace-rounds 3:4
 """
 
 from __future__ import annotations
@@ -36,11 +39,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.configs.base import FedScenario
-from repro_torch.core.comm import comm_bits_per_round, leaf_info_of
+from repro_torch.core import telemetry as tele
+from repro_torch.core.comm import CommMeter, comm_bits_per_round, leaf_info_of
+from repro_torch.core.engine import make_round_runner, scan_segments
 from repro_torch.core.fedcet import FedCET
 from repro_torch.data.synthetic import make_hetero_lm_dataset
 from repro_torch.models import build_model
-from repro_torch.utils.tree import tree_map, tree_num_params
+from repro_torch.utils.tree import tree_map
 
 #: the reference's scenario options and their defaults.
 SCENARIO_DEFAULTS = {
@@ -48,11 +53,11 @@ SCENARIO_DEFAULTS = {
     "participation": 1.0, "delay": "none", "stale_policy": "last",
     "topology": "star", "tier_compression": "none", "cohort": "none",
     "arena": False, "telemetry": None, "trace_rounds": None,
-    "ckpt_dir": None,
+    "trace_dir": "profile_trace", "ckpt_dir": None,
 }
-#: the options this slice runs; the others accept their default only.
+#: the options the port runs; the others accept their default only.
 PORTED = ("compression", "participation", "arena", "topology",
-          "tier_compression")
+          "tier_compression", "telemetry", "trace_rounds", "trace_dir")
 
 
 def run_training(arch: str, *, steps: int = 100, tau: int = 2,
@@ -65,18 +70,31 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     caller passes another; with no card and no explicit device it raises).
 
     ``scenario`` takes ``compression``, ``participation``, ``arena``,
-    ``topology`` and ``tier_compression`` (see the module docstring); the
-    reference's other options raise "not yet ported" unless at their
-    default.
+    ``topology``, ``tier_compression``, ``telemetry``, ``trace_rounds``
+    and ``trace_dir`` (see the module docstring); the reference's other
+    options raise "not yet ported" unless at their default.
+
+    The rounds run through ``engine.make_round_runner`` in segments that
+    end at every logged round and at the edges of the ``trace_rounds``
+    window. ``telemetry`` is a sink spec (``jsonl:<path>``, ``csv:<path>``,
+    ``stdout[:k]``, ``memory``, comma-chained; ``hist[:bins[:lo:hi]]`` /
+    ``topk[:k]`` turn on the per-client ``||d_i||`` and drift sketches,
+    ``leafstats`` the per-leaf breakdown): any non-empty spec attaches the
+    in-round telemetry, emits the run manifest first and drains each
+    segment's series (with the loss merged in) into the sinks, once per
+    segment; the per-round line then prints the in-round participant
+    count. ``trace_rounds`` (``"a:b"`` or ``"a"``) brackets that window
+    with ``torch.profiler`` and writes a Chrome trace under ``trace_dir``.
 
     Returns the history ``{"round", "loss", "comm_bytes", "seconds"}`` of
     the logged rounds (every ``log_every``-th and the last) and the model's
     ``n_params``: ``loss`` is the mean client loss on the round's first
     batch after the round, as in the reference; ``comm_bytes`` the
-    cumulative bit-true bytes up and down; ``seconds`` the round's
-    host-clock time, measured after the device has finished it.
-    ``callback(round, loss, comm_bytes, state)`` runs after each logged
-    round."""
+    cumulative bit-true bytes up and down (``CommMeter``); ``seconds`` the
+    host-clock time per round of the logged round's segment (the rounds,
+    their losses and telemetry), measured after the device has finished
+    it. ``callback(round, loss, comm_bytes, state)`` runs after each
+    logged round."""
     for k, v in scenario.items():
         if k not in SCENARIO_DEFAULTS:
             raise TypeError(f"run_training() got an unexpected option {k!r}")
@@ -84,7 +102,8 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
             raise NotImplementedError(
                 f"{k}={v!r} is not yet ported to PyTorch (the port runs "
                 f"the synchronous round: {k}={SCENARIO_DEFAULTS[k]!r})")
-    ported = {k: scenario.get(k, SCENARIO_DEFAULTS[k]) for k in PORTED}
+    opt = {**{k: SCENARIO_DEFAULTS[k] for k in PORTED}, **scenario}
+    telemetry = opt["telemetry"]
     device = resolve_device(device)
     if device.type == "cuda":
         # full-float32 matmuls: what the reference computes on its CPU path.
@@ -97,7 +116,12 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed),
                         device=device)
-    algo = FedScenario(**ported, seed=seed).apply(
+    algo = FedScenario(compression=opt["compression"],
+                       participation=opt["participation"],
+                       topology=opt["topology"],
+                       tier_compression=opt["tier_compression"],
+                       arena=opt["arena"], telemetry=telemetry or False,
+                       seed=seed).apply(
         FedCET(alpha=alpha, c=c, tau=tau, n_clients=n_clients))
     ds = make_hetero_lm_dataset(cfg.vocab_size, n_clients, seq_len, batch,
                                 heterogeneity=heterogeneity, seed=seed,
@@ -108,41 +132,98 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     def batches_for(r):
         return {"tokens": ds.sample_round(r, tau)}  # [tau, C, B, S]
 
+    def round_loss(s, b):
+        return mean_client_loss(client_losses, algo.client_params(s), b)
+
     state = algo.init(grad_fn, params,
                       tree_map(lambda b: b[0], batches_for(0)))
-    n_params = tree_num_params(params)
-    bits = comm_bits_per_round(algo, n_params, n_clients,
-                               leaf_info_of(params))
-    bytes_per_round = int(bits["up_bits"] / 8) + int(bits["down_bits"] / 8)
-    # the expected participant count, as the reference prints without
-    # telemetry.
-    active = int(round(n_clients * min(ported["participation"], 1.0)))
+    runner = make_round_runner(algo, grad_fn, metric_fn=round_loss,
+                               metric_with_batch=True)
+
+    sinks = tele.parse_sinks(telemetry)
+    tel_spec = getattr(algo, "telemetry", None)
+    monitors = tele.resolve_monitors(tel_spec, algo)
+    leaf_info = leaf_info_of(params)
+    leaf_names = None
+    if tel_spec is not None and tel_spec.leaf_stats:
+        leaf_names = [nm for nm, _ in leaf_info]
+    trace = tele.TraceSession(tele.parse_trace_rounds(opt["trace_rounds"]),
+                              out_dir=opt["trace_dir"])
+    trace_stops = set(trace.boundaries())
+
+    def is_stop(r):
+        return r % log_every == 0 or r == steps - 1 or r in trace_stops
+
+    meter = CommMeter.for_params(params, algo=algo, n_clients=n_clients)
+    bits = comm_bits_per_round(algo, meter.n_params, n_clients, leaf_info)
+    # the expected participant count when telemetry is off; with it on,
+    # the line reports the in-round count.
+    expected_active = int(round(n_clients * min(opt["participation"], 1.0)))
+    if sinks:
+        tele.emit_event(sinks, tele.run_manifest(
+            algo, n_params=meter.n_params, device=device,
+            config={"arch": arch, "steps": steps, "tau": tau,
+                    "n_clients": n_clients, "batch": batch,
+                    "seq_len": seq_len, "compression": opt["compression"],
+                    "compression_plan": "none", "plan_adapt": 0.0,
+                    "participation": opt["participation"], "delay": "none",
+                    "stale_policy": "last", "topology": opt["topology"],
+                    "tier_compression": opt["tier_compression"],
+                    "cohort": "none", "arena": opt["arena"], "seed": seed},
+            monitors=monitors, leaf_info=leaf_info))
 
     history = {"round": [], "loss": [], "comm_bytes": [], "seconds": [],
-               "n_params": n_params}
-    for r in range(steps):
-        b = batches_for(r)
+               "n_params": meter.n_params}
+    for r, stop in scan_segments(0, steps, is_stop):
+        ev = trace.maybe_start(r)
+        if ev:
+            tele.emit_event(sinks, ev)
+        stacked = tree_map(lambda *bs: torch.stack(bs),
+                           *[batches_for(i) for i in range(r, stop + 1)])
         _sync(device)
         t0 = time.perf_counter()
-        state = algo.round(grad_fn, state, b)
+        state, ys = runner(state, stacked)
         _sync(device)
-        seconds = time.perf_counter() - t0
-        with torch.no_grad():
-            loss = float(torch.mean(client_losses(
-                algo.client_params(state),
-                tree_map(lambda a: a[0], b))))
-        if r % log_every == 0 or r == steps - 1:
-            print(f"round {r:5d}  loss {loss:.4f}  "
-                  f"bits_up {(r + 1) * bits['up_bits']:.4g}  "
-                  f"active_clients {active}")
-            comm = (r + 1) * bytes_per_round
-            history["round"].append(r)
-            history["loss"].append(loss)
-            history["comm_bytes"].append(comm)
+        seconds = (time.perf_counter() - t0) / (stop + 1 - r)
+        losses, tel_series = tele.split_metrics(algo, ys)
+        ev = trace.maybe_stop(stop + 1)
+        if ev:
+            tele.emit_event(sinks, ev)
+        if tel_series is not None and sinks:
+            tele.drain({**tel_series, "loss": losses}, sinks=sinks,
+                       monitors=monitors, start_round=r, algo=algo,
+                       n_params=meter.n_params, leaf_names=leaf_names,
+                       leaf_bits=meter.leaf_bits)
+        for _ in range(r, stop + 1):
+            meter.tick_round(algo)
+        losses = losses.tolist()
+        active = (None if tel_series is None
+                  or "participating" not in tel_series
+                  else tel_series["participating"].tolist())
+        for i, rr in enumerate(range(r, stop + 1)):
+            if rr % log_every == 0 or rr == steps - 1:
+                a = expected_active if active is None else int(active[i])
+                print(f"round {rr:5d}  loss {losses[i]:.4f}  "
+                      f"bits_up {(rr + 1) * bits['up_bits']:.4g}  "
+                      f"active_clients {a}")
+        if stop % log_every == 0 or stop == steps - 1:
+            history["round"].append(stop)
+            history["loss"].append(losses[-1])
+            history["comm_bytes"].append(meter.total)
             history["seconds"].append(seconds)
             if callback:
-                callback(r, loss, comm, state)
+                callback(stop, losses[-1], meter.total, state)
+    trace.close()
+    tele.close_sinks(sinks)
     return history
+
+
+def mean_client_loss(client_losses, params, batches) -> torch.Tensor:
+    """Mean client loss of the stacked ``params`` on the round's first
+    batch (the logged loss), on the device."""
+    with torch.no_grad():
+        return torch.mean(client_losses(params,
+                                        tree_map(lambda a: a[0], batches)))
 
 
 def _sync(device: torch.device) -> None:
@@ -184,6 +265,18 @@ def main(argv=None):
     ap.add_argument("--tier-compression", default="none",
                     help="hierarchies only: compressor spec for interior "
                          "edge->root tier uplinks (e.g. shift:q8)")
+    ap.add_argument("--telemetry", default=None,
+                    help="telemetry sink spec: jsonl:<path> | csv:<path> | "
+                         "stdout[:k] | memory, comma-chained; any non-empty "
+                         "spec enables in-round telemetry; add "
+                         "hist[:bins[:lo:hi]] / topk[:k] for the per-client "
+                         "distribution sketches, leafstats for per-leaf "
+                         "norms")
+    ap.add_argument("--trace-rounds", default=None,
+                    help="round window a:b (or a) to trace with "
+                         "torch.profiler; the Chrome trace is written "
+                         "under --trace-dir")
+    ap.add_argument("--trace-dir", default="profile_trace")
     for k, v in SCENARIO_DEFAULTS.items():
         if k in PORTED:
             continue

@@ -1,8 +1,9 @@
 """The port's kernels against the JAX package and against their own plain
 versions: the FedCET triad and pair, the dithered quantizer (one scale per
-leaf, and one per arena row), the fused round tail and the gossip
-neighbor reduce (its CPU tests against the JAX package are in
-``tests/test_torch_gossip.py``).
+leaf, and one per arena row), the fused round tail, the gossip neighbor
+reduce (its CPU tests against the JAX package are in
+``tests/test_torch_gossip.py``) and the telemetry client sketch (its CPU
+tests in ``tests/test_torch_telemetry_dist.py``).
 
 CPU tests: the port's ``ops``/``ref`` (plain versions on a CPU tensor)
 against JAX's ``ref`` and JAX's ``ops`` with ``impl="kernel"`` (the Pallas
@@ -142,10 +143,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     a, u = x.reshape(5, 9), g[0]
     assert torch.equal(ops.stochastic_quantize(a, u, a.abs().max() / 127, 8),
                        ref.stochastic_quantize(a, u, a.abs().max() / 127, 8))
+    sketch = ops.telemetry_sketch(a, bins=8, lo=-2.0, hi=2.0, k=2)
+    assert torch.equal(sketch[1], ref.client_sketch(a, bins=8, lo=-2.0,
+                                                    hi=2.0)[1])
     assert set(K.LAUNCHES) == {"fedcet_v", "fedcet_comm", "fedcet_comm4",
                                "stochastic_quantize",
                                "stochastic_quantize_rows",
-                               "fedcet_round_tail", "gossip_reduce"}
+                               "fedcet_round_tail", "gossip_reduce",
+                               "telemetry_sketch"}
     assert not any(K.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.fedcet_v(x, g, d, ALPHA, impl="kernel")
@@ -529,3 +534,54 @@ def test_cuda_sparse_mixing_matches_the_cpu(spec):
     for k in tree:
         np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
                                    rtol=0, atol=1e-12)
+
+
+def _sketch_store(n, d, dtype, seed=0, zero_rows=()):
+    """[n, d] rows spanning 1e-15 .. 1e6 in norm (both clipped edge bins),
+    some rows all zero, on the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)) * np.logspace(-17, 4, n)[:, None]
+    x[list(zero_rows)] = 0.0
+    return _card(x.astype(dtype))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,d", [(8, 4 * 1024 * 1024), (8, 100_003),
+                                 (1, 1024), (13, 3 * 1024), (1024, 2048),
+                                 (3, 5)])
+def test_cuda_telemetry_sketch_equals_plain(dtype, n, d):
+    """Norms, histogram and top ids at tolerance 0 against the plain
+    version (the same fixed sum order), with zero rows and norms past both
+    edges of the bin range; two runs agree bit for bit."""
+    _need_cuda()
+    x = _sketch_store(n, d, dtype, seed=n, zero_rows=(0,) if n > 1 else ())
+    kw = dict(bins=48, lo=-12.0, hi=4.0, k=4)
+    before = K.LAUNCHES["telemetry_sketch"]
+    got = ops.telemetry_sketch(x, **kw)
+    again = ops.telemetry_sketch(x, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["telemetry_sketch"] == before + 2
+    want = ops.telemetry_sketch(x, impl="ref", **kw)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
+    assert int(got[1].sum()) == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_telemetry_sketch_unaligned_and_rejects(dtype):
+    _need_cuda()
+    rng = np.random.default_rng(5)
+    flat = torch.from_numpy(rng.standard_normal(8 * 4096 + 1).astype(
+        dtype)).cuda()[1:]
+    x = flat.reshape(8, 4096)
+    assert x.data_ptr() % 16 != 0
+    kw = dict(bins=16, lo=-3.0, hi=3.0, k=3)
+    for g, w in zip(ops.telemetry_sketch(x, **kw),
+                    ops.telemetry_sketch(x, impl="ref", **kw)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="hi > lo"):
+        ops.telemetry_sketch(x, bins=16, lo=1.0, hi=1.0, k=3)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ops.telemetry_sketch(x.half(), **kw)
