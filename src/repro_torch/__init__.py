@@ -22,7 +22,10 @@ kernel for the gossip neighbor reduce (``kernels/csrc/gossip_reduce.cu``).
 Slice 4: the in-round telemetry (``core/telemetry.py``: metrics, sketches,
 monitors, sinks, the profiler window; ``CommMeter``) on the training path,
 and a CUDA kernel for the per-client norm-histogram sketch
-(``kernels/csrc/telemetry_reduce.cu``).
+(``kernels/csrc/telemetry_reduce.cu``). Slice 5: the serving path
+(``launch/serve.py``: KV-cached prefill and decode; ``models/attention.py``
+whole; ``configs/qwen3_1p7b.py``) and a CUDA kernel for grouped-GQA flash
+attention (``kernels/csrc/flash_attention.cu``).
 """
 
 import torch

@@ -71,8 +71,9 @@ class ArchConfig:
     remat: bool = True
     scan_layers: bool = True
     attn_block_size: int = 512
-    #: the reference's Pallas attention / SSD switches; their kernels are
-    #: not ported yet, so the port's models refuse True.
+    #: the reference's Pallas attention / SSD switches: the attention one
+    #: sends the model's forward through the flash-attention kernel; the
+    #: SSD kernel is not ported yet.
     use_pallas_attention: bool = False
     use_pallas_ssd: bool = False
 

@@ -27,6 +27,11 @@ Bits as jax draws them (the traps, with their lines in jax's ``prng.py``):
   under ``jax_enable_x64`` (as the reference's tests run), float32
   otherwise. Here the dtype is an explicit argument; so is ``randint``'s,
   whose default in jax is int64 under x64 and int32 otherwise.
+* ``categorical(key, logits)`` (``random.py:_gumbel``, mode "low") draws
+  its uniform in the logits' dtype on ``[tiny, 1)``, as
+  ``max(tiny, u * (1 - tiny) + tiny)``, and takes the argmax of
+  ``-log(-log(u)) + logits``; ``log`` is the only step that may differ
+  from XLA's in the last bit.
 """
 
 from __future__ import annotations
@@ -146,3 +151,16 @@ def _mod64(w_hi: torch.Tensor, w_lo: torch.Tensor, span: int) -> torch.Tensor:
     if not 0 < span < 2 ** 31:
         raise ValueError(f"randint span must be in (0, 2**31), got {span}")
     return ((w_hi % span) * (2 ** 32 % span) + w_lo % span) % span
+
+
+def categorical(k: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(k, logits)`` over the last axis: the
+    Gumbel-max draw, one Gumbel variate per logit from ``uniform`` in the
+    logits' dtype (float32 or float64). Returns int64 indices of
+    ``logits.shape[:-1]``; ties go to the lower index, as in
+    ``jnp.argmax``."""
+    tiny = torch.finfo(logits.dtype).tiny
+    u = uniform(k, logits.shape, logits.dtype, device=logits.device)
+    # (1 - tiny) rounds to 1 in float32 and float64, as in jax's _uniform.
+    u = torch.clamp_min(u * (1.0 - tiny) + tiny, tiny)
+    return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1)

@@ -9,7 +9,8 @@ named by a hash over all sources, headers and flags, so editing any of
 them rebuilds it. Nothing is built or loaded at import time.
 
 Each kernel wrapper (``kernels/fedcet_update.py``, ``kernels/quantize.py``,
-``kernels/gossip_reduce.py``, ``kernels/telemetry_reduce.py``) checks device, dtype, contiguity and shape,
+``kernels/gossip_reduce.py``, ``kernels/telemetry_reduce.py``,
+``kernels/flash_attention.py``) checks device, dtype, contiguity and shape,
 allocates its outputs with ``torch.empty``, launches on PyTorch's current
 stream, raises if the launch reports an error, and adds one to its entry
 of :data:`LAUNCHES`.
@@ -32,7 +33,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 #: --fmad=false: products and sums round once each, like the plain PyTorch
-#: expressions, so the card checks can hold a tolerance of 0.
+#: expressions, so the card checks can hold a tolerance of 0. The flash
+#: attention kernel, held to a tolerance instead, writes its inner
+#: products with explicit __fmaf_rn, which the flag leaves alone.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -40,7 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"fedcet_v": 0, "fedcet_comm": 0, "fedcet_comm4": 0,
             "stochastic_quantize": 0, "stochastic_quantize_rows": 0,
             "fedcet_round_tail": 0, "gossip_reduce": 0,
-            "telemetry_sketch": 0}
+            "telemetry_sketch": 0, "flash_attention": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -57,11 +60,14 @@ _SIGNATURES = {
     "gossip_reduce": [_ptr] * 5 + [_i64, _i64, _i64, _i32, _ptr],
     "telemetry_sketch": [_ptr] * 4 + [_i64, _i64, _i32, _i32, "T", "T", _i32,
                                       _ptr],
+    "flash_attention": [_ptr] * 4 + [_i64] * 3 + [_i32] * 6 + [_ptr],
 }
+#: the float types each entry point is built for (default: f32 and f64).
+_BUILT_FOR = {"flash_attention": ("f32", "bf16")}
 #: counted forms that share another form's C entry point.
 _ENTRY = {"fedcet_comm4": "fedcet_comm",
           "stochastic_quantize_rows": "stochastic_quantize"}
-SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 _CTYPE = {"f32": ctypes.c_float, "f64": ctypes.c_double}
 
 
@@ -135,9 +141,10 @@ def library():
             path, _, _ = build()
             lib = ctypes.CDLL(str(path))
             for name, sig in _SIGNATURES.items():
-                for sfx, scalar in _CTYPE.items():
+                for sfx in _BUILT_FOR.get(name, ("f32", "f64")):
                     fn = getattr(lib, f"{name}_{sfx}")
-                    fn.argtypes = [scalar if a == "T" else a for a in sig]
+                    fn.argtypes = [_CTYPE[sfx] if a == "T" else a
+                                   for a in sig]
                     fn.restype = _i32
             _LIB = lib
         return _LIB
@@ -149,8 +156,10 @@ def check(name: str, *tensors: torch.Tensor) -> str:
     if dev.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
                          f"{dev}")
-    if dt not in SUFFIX:
-        raise TypeError(f"{name}: float32 or float64 only, got {dt}")
+    built = _BUILT_FOR.get(name, ("f32", "f64"))
+    if SUFFIX.get(dt) not in built:
+        names = [str(t)[6:] for t, sfx in SUFFIX.items() if sfx in built]
+        raise TypeError(f"{name}: {' or '.join(names)} only, got {dt}")
     for t in tensors:
         if t.device != dev or t.dtype != dt:
             raise ValueError(f"{name}: operands differ in device or dtype "

@@ -1,7 +1,8 @@
 """Public wrappers of the port's kernels (port of
 ``src/repro/kernels/ops.py``: ``fedcet_v``, ``fedcet_comm``,
 ``stochastic_quantize``, ``stochastic_quantize_rows``,
-``fedcet_round_tail``, ``gossip_reduce`` and ``telemetry_sketch``).
+``fedcet_round_tail``, ``gossip_reduce``, ``telemetry_sketch`` and
+``flash_attention``).
 
 ``impl`` selects the implementation:
 
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import fedcet_update as K
+from repro_torch.kernels import flash_attention as KF
 from repro_torch.kernels import gossip_reduce as KG
 from repro_torch.kernels import quantize as KQ
 from repro_torch.kernels import ref as R
@@ -151,3 +153,17 @@ def top_k(vals, k: int):
     in ``jax.lax.top_k`` (``torch.topk`` leaves their order open)."""
     srt, order = torch.sort(vals, descending=True, stable=True)
     return srt[:k], order[:k].to(torch.int32)
+
+
+def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
+                    chunk: int = 0, impl: str = "auto"):
+    """Grouped-GQA flash attention, forward (see
+    kernels/flash_attention.py; plain version: kernels/ref.py:
+    flash_attention): q ``[B, S, Hq, D]``, k/v ``[B, T, Hkv, D]``, ``kind``
+    one of causal, sliding (``window``), chunked (``chunk``) and
+    bidirectional. Returns ``[B, S, Hq, D]``. The CUDA kernel takes
+    float32 and bfloat16; the plain version also float64."""
+    if _use_kernel(impl, q):
+        return KF.flash_attention(q, k, v, kind=kind, window=window,
+                                  chunk=chunk)
+    return R.flash_attention(q, k, v, kind=kind, window=window, chunk=chunk)

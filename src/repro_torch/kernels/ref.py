@@ -1,8 +1,12 @@
 """Plain PyTorch versions of the port's kernels (port of
-``src/repro/kernels/ref.py:8-59, 79-119``), term for term: the CPU path of
-``kernels/ops.py`` and the yardstick the CUDA kernels are held against."""
+``src/repro/kernels/ref.py:8-59, 79-119``, and the math of the Pallas
+flash-attention kernel, ``src/repro/kernels/flash_attention.py``), term
+for term: the CPU path of ``kernels/ops.py`` and the yardstick the CUDA
+kernels are held against."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -173,3 +177,79 @@ def client_sketch(x, *, bins: int, lo: float, hi: float):
             h //= 2
         a = a[..., 0]
     return a, log_histogram(torch.sqrt(a), bins, lo, hi)
+
+
+#: the masked-score fill of the attention kernels (the reference's NEG_INF).
+NEG_INF = -1e30
+#: the mask kinds of :func:`flash_attention`, in the CUDA kernel's order.
+MASK_KINDS = ("causal", "sliding", "chunked", "bidirectional")
+
+
+def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
+                    chunk: int = 0, q_blk: int = 256, kv_blk: int = 256):
+    """Grouped-GQA online-softmax attention, forward: the reference's
+    Pallas kernel (``src/repro/kernels/flash_attention.py``) written out
+    in torch, tile by tile.
+
+    q ``[B, S, Hq, D]``, k/v ``[B, T, Hkv, D]`` (``Hq = G * Hkv``; query
+    head ``h * G + g`` reads KV head ``h``, which is never repeated).
+    Per ``q_blk`` query tile and ``kv_blk`` kv tile: scores in float32
+    over ``sqrt(D)``; the mask from global positions (``kpos < T``,
+    ``qpos < S``, causal unless bidirectional, then ``kpos > qpos -
+    window`` or the same ``chunk``); masked scores ``-1e30``; running max
+    ``m``, denominator ``l`` and accumulator ``acc`` in float32; ``p``
+    cast to v's dtype before ``p @ v``; a final ``acc / max(l, 1e-30)``
+    in q's dtype. Every tile is visited, as in the reference: a row whose
+    first tiles are all masked gathers ``exp(0)`` junk that the first
+    allowed tile's ``alpha = exp(-1e30 - m) = 0`` wipes. Returns
+    ``[B, S, Hq, D]``."""
+    if kind not in MASK_KINDS:
+        raise ValueError(f"flash_attention: kind {kind!r} not in "
+                         f"{MASK_KINDS}")
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    q_blk, kv_blk = min(q_blk, S), min(kv_blk, T)
+    nq, nk = -(-S // q_blk), -(-T // kv_blk)
+    qg = F.pad(q.reshape(B, S, Hkv, G, D),
+               (0, 0, 0, 0, 0, 0, 0, nq * q_blk - S))
+    k = F.pad(k, (0, 0, 0, 0, 0, nk * kv_blk - T))
+    v = F.pad(v, (0, 0, 0, 0, 0, nk * kv_blk - T))
+    sqrt_d = math.sqrt(D)
+    dev = q.device
+    out = torch.empty(qg.shape, dtype=q.dtype, device=dev)
+    for iq in range(nq):
+        qt = qg[:, iq * q_blk:(iq + 1) * q_blk].to(torch.float32)
+        qpos = iq * q_blk + torch.arange(q_blk, device=dev)
+        m = torch.full((B, q_blk, Hkv, G), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, q_blk, Hkv, G, D), dtype=torch.float32,
+                          device=dev)
+        for ik in range(nk):
+            sl = slice(ik * kv_blk, (ik + 1) * kv_blk)
+            scores = torch.einsum("bqhgd,bkhd->bqhgk", qt,
+                                  k[:, sl].to(torch.float32)) / sqrt_d
+            kpos = ik * kv_blk + torch.arange(kv_blk, device=dev)
+            qp, kp = qpos[:, None], kpos[None, :]
+            ok = (kp < T) & (qp < S)
+            if kind != "bidirectional":
+                ok = ok & (kp <= qp)
+            if kind == "sliding":
+                ok = ok & (kp > qp - window)
+            elif kind == "chunked":
+                ok = ok & ((kp // chunk) == (qp // chunk))
+            scores = torch.where(ok[None, :, None, None, :], scores,
+                                 NEG_INF)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bqhgk,bkhd->bqhgd",
+                              p.to(v.dtype).to(torch.float32),
+                              v[:, sl].to(torch.float32))
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out[:, iq * q_blk:(iq + 1) * q_blk] = (
+            acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return out[:, :S].reshape(B, S, Hq, D)

@@ -1,5 +1,5 @@
-"""Model zoo of the port (port of ``src/repro/models/__init__.py``):
-slice 1 builds the dense transformer family."""
+"""Model zoo of the port (port of ``src/repro/models/__init__.py``): the
+dense transformer family, for training and serving."""
 
 from repro_torch.configs.base import ArchConfig
 
@@ -11,7 +11,8 @@ def build_model(cfg: ArchConfig):
 
         return TransformerLM(cfg)
     raise NotImplementedError(f"model family {cfg.family!r} is not yet "
-                              "ported (dense only)")
+                              "ported: the port builds the dense family; "
+                              "the others are ROADMAP.md Queue 1 item 11")
 
 
 __all__ = ["ArchConfig", "build_model"]

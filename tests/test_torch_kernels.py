@@ -2,8 +2,9 @@
 versions: the FedCET triad and pair, the dithered quantizer (one scale per
 leaf, and one per arena row), the fused round tail, the gossip neighbor
 reduce (its CPU tests against the JAX package are in
-``tests/test_torch_gossip.py``) and the telemetry client sketch (its CPU
-tests in ``tests/test_torch_telemetry_dist.py``).
+``tests/test_torch_gossip.py``), the telemetry client sketch (its CPU
+tests in ``tests/test_torch_telemetry_dist.py``) and flash attention (its
+CPU tests in ``tests/test_torch_attention.py``).
 
 CPU tests: the port's ``ops``/``ref`` (plain versions on a CPU tensor)
 against JAX's ``ref`` and JAX's ``ops`` with ``impl="kernel"`` (the Pallas
@@ -18,7 +19,11 @@ ulps of the operand scale). The quantizer's plain versions equal JAX's
 
 Card tests (marker ``cuda``): each CUDA kernel against its plain version
 on the card. The kernels are built with ``--fmad=false``, so they round
-like the plain PyTorch expression and must agree bit for bit. These tests
+like the plain PyTorch expression and must agree bit for bit; flash
+attention sums its dot products in another order than the plain version's
+einsums, and is held to the reference kernel's own tolerance against
+naive attention (``tests/test_kernels.py``): 2e-5 in float32, 5e-2 in
+bfloat16. These tests
 import no JAX, so they also run where JAX is not installed
 (``pytest --noconftest -m cuda``).
 """
@@ -146,11 +151,15 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     sketch = ops.telemetry_sketch(a, bins=8, lo=-2.0, hi=2.0, k=2)
     assert torch.equal(sketch[1], ref.client_sketch(a, bins=8, lo=-2.0,
                                                     hi=2.0)[1])
+    q = x.float().reshape(1, 5, 3, 3)
+    kv = q[:, :, :1].contiguous()
+    assert torch.equal(ops.flash_attention(q, kv, kv),
+                       ref.flash_attention(q, kv, kv))
     assert set(K.LAUNCHES) == {"fedcet_v", "fedcet_comm", "fedcet_comm4",
                                "stochastic_quantize",
                                "stochastic_quantize_rows",
                                "fedcet_round_tail", "gossip_reduce",
-                               "telemetry_sketch"}
+                               "telemetry_sketch", "flash_attention"}
     assert not any(K.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.fedcet_v(x, g, d, ALPHA, impl="kernel")
@@ -585,3 +594,76 @@ def test_cuda_telemetry_sketch_unaligned_and_rejects(dtype):
         ops.telemetry_sketch(x, bins=16, lo=1.0, hi=1.0, k=3)
     with pytest.raises(TypeError, match="float32 or float64"):
         ops.telemetry_sketch(x.half(), **kw)
+
+
+#: (B, S, T, Hkv, G, D, kind, window, chunk): tiles that do not divide S,
+#: T != S, every mask kind, G in {1, 2, 8}, every built head dim and a
+#: sliding window (5) smaller than one kv tile.
+FLASH_CASES = [
+    (1, 1000, 1000, 2, 2, 64, "causal", 0, 0),
+    (1, 2047, 2047, 1, 1, 128, "sliding", 5, 0),
+    (2, 300, 300, 1, 8, 32, "chunked", 0, 7),
+    (1, 513, 513, 2, 2, 256, "chunked", 0, 64),
+    (2, 200, 333, 2, 2, 16, "bidirectional", 0, 0),
+    (1, 200, 333, 3, 2, 64, "causal", 0, 0),
+    (1, 333, 200, 1, 8, 128, "causal", 0, 0),
+    (2, 129, 129, 5, 2, 64, "sliding", 40, 0),
+]
+
+
+def _flash_inputs(B, S, T, Hkv, G, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, Hkv * G, D))
+    k, v = (rng.standard_normal((B, T, Hkv, D)) for _ in range(2))
+    return [torch.from_numpy(a.astype(np.float32)).to(dtype).cuda()
+            for a in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(case):
+    _need_cuda()
+    from repro_torch.kernels import library as L
+
+    B, S, T, Hkv, G, D, kind, window, chunk = case
+    q, k, v = _flash_inputs(B, S, T, Hkv, G, D, torch.float32)
+    kw = dict(kind=kind, window=window, chunk=chunk)
+    before = L.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert L.LAUNCHES["flash_attention"] == before + 1
+    want = ops.flash_attention(q, k, v, impl="ref", **kw)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["causal", "sliding"])
+def test_cuda_flash_attention_bf16(kind):
+    _need_cuda()
+    q, k, v = _flash_inputs(2, 257, 257, 5, 2, 64, torch.bfloat16, seed=1)
+    kw = dict(kind=kind, window=100)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q, k, v, impl="ref", **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=5e-2,
+                               atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take():
+    _need_cuda()
+    q, k, v = _flash_inputs(1, 16, 16, 2, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="supports"):
+        ops.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                            v[..., :48].contiguous())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        ops.flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, k, v, kind="sliding")

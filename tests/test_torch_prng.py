@@ -1,7 +1,9 @@
 """The port's threefry PRNG (``core/prng.py``) against ``jax.random`` on the
 CPU, bit for bit: key data, ``fold_in`` (including the warm-up step -1 and
 2**31 - 1), ``split``, ``uniform`` in float32 and float64, ``bernoulli``
-in both dtypes and ``randint`` in int32 and int64. The tests run with
+in both dtypes, ``randint`` in int32 and int64, and ``categorical`` (the
+Gumbel-max draw, float32 and float64 logits, and the sampled ``generate``
+of the serving path, token for token). The tests run with
 ``jax_enable_x64`` on (``tests/conftest.py``), the reference's setting."""
 
 import numpy as np
@@ -98,3 +100,39 @@ def test_uniform_runs_on_the_tensors_device_and_rejects_other_dtypes():
     assert u.device.type == "cpu" and bool(((u >= 0) & (u < 1)).all())
     with pytest.raises(TypeError, match="float32 or float64"):
         prng.uniform(prng.key(0), (3,), torch.float16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", [(5,), (3, 512), (2, 4, 100)])
+def test_categorical_matches_jax(dtype, shape):
+    jax, jk, pk = _pair(seed=11, data=2)
+    logits = np.random.default_rng(0).standard_normal(shape).astype(dtype)
+    want = np.asarray(jax.random.categorical(jk, logits))
+    got = prng.categorical(pk, torch.from_numpy(logits))
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_sampled_generate_draws_the_reference_tokens():
+    """A reduced fedlm-100m ``generate(greedy=False)``: the reference's run
+    (its weights from seed 0) against the port's loop on those weights;
+    each step's token is a ``categorical`` draw under a split key."""
+    jax = _jax()
+    from repro.configs import get_config as jget
+    from repro.launch import serve as jserve
+    from repro.models import build_model as jbuild
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import input_specs, serve
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import params_from_numpy
+
+    want = jserve.generate("fedlm-100m", prompt_len=12, gen_len=8, batch=3,
+                           greedy=False)
+    jcfg = jget("fedlm-100m").reduced()
+    cfg = get_config("fedlm-100m").reduced()
+    params = params_from_numpy(jax.tree.map(
+        np.asarray, jbuild(jcfg).init(jax.random.key(0))))
+    got = serve.generate_tokens(
+        build_model(cfg), params, input_specs.make_batch(cfg, 3, 12, key=1),
+        gen_len=8, greedy=False)
+    assert np.array_equal(got.numpy(), np.asarray(want))
