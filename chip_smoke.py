@@ -26,12 +26,19 @@ of the JAX package. Phases, one JSON line each:
                qwen3-1.7b ``[1, 8192, 16/8, 128]`` sliding 4096), the
                first also in bfloat16, and at S in {1000, 2047}, T != S,
                every mask kind (chunk 7 and 64, a window of 5 inside one
-               kv tile), G in {1, 2, 8}, D in {16, 32, 64, 128, 256};
-               kernel, plain and bound times from CUDA events, and the
-               library yardsticks: torch.matmul with the dense weighted
-               matrix for the gossip reduce, torch.linalg.vector_norm
-               (norms only) for the sketch, scaled_dot_product_attention
-               (enable_gqa) for flash attention;
+               kv tile), G in {1, 2, 8}, D in {16, 32, 64, 128, 256}, and
+               rows with no allowed key (chunked and sliding, T < S); the
+               SSD intra-chunk term within 1e-4 of the output's scale (1e-2
+               in bfloat16) at mamba2-130m's prefill ``[4, 16, 128, 24,
+               64]``, N 128, at the reference's sweep shapes in float32 and
+               bfloat16, a ragged chunk of 37, a_cs near -1e3, P 128 and
+               uneven head groups; kernel, plain and bound times from CUDA
+               events, and the library yardsticks: torch.matmul with the
+               dense weighted matrix for the gossip reduce,
+               torch.linalg.vector_norm (norms only) for the sketch,
+               scaled_dot_product_attention (enable_gqa) for flash
+               attention, the two batched torch.matmul products alone
+               (C B^T and W @ x, no mask or exp) for the SSD term;
 4. quadratic — FedCET on the paper's §IV problem in float64 through the
                kernels: uncompressed (400 rounds), ``shift:q8`` on the
                arena through the fused tail and per leaf (both must reach
@@ -73,17 +80,21 @@ of the JAX package. Phases, one JSON line each:
 8. serve     — ``launch/serve.py:generate_tokens`` at full width, float32,
                random weights from seed 0: (S1) fedlm-100m, batch 4,
                prompt 2048, 64 tokens; (S2) qwen3-1.7b, batch 1, prompt
-               8192 through its 4096-slot ring cache, 32 tokens. Launch
+               8192 through its 4096-slot ring cache, 32 tokens; (S3)
+               mamba2-130m, batch 4, prompt 2048, 64 tokens. Launch
                counts reset just before and read just after: exactly one
-               flash_attention per layer (14, 28). Prefill ms, decode ms
-               per token, tokens/s and peak GB; the logits of the run
-               (teacher-forced on its tokens) within 1e-4 of their scale
-               of the same run with the plain attention; S1's prefill of
-               2047 tokens plus one decode step against ``forward``
-               (blockwise plain attention) within 1e-4; all finite;
-               then 4 decode steps under ``torch.profiler``: top device
-               kernels and the device idle share (trace in
-               ``build/smoke/``).
+               flash_attention per layer on S1 and S2 (14, 28), one
+               ssd_intra per layer on S3 (24), and no other kernel. Prefill
+               ms, decode ms per token, tokens/s and peak GB; the logits of
+               the run (teacher-forced on its tokens) within 1e-4 of their
+               scale of the same run with the kernel's plain version; the
+               prefill of all but the last prompt token plus one decode
+               step against ``forward`` (S1: blockwise plain attention,
+               within 1e-4; S3: the plain SSD, within 2e-3); S3's
+               ``forward`` with ``use_pallas_ssd`` within 2e-4 (rtol =
+               atol) of the plain one; all finite; then 4 decode steps
+               under ``torch.profiler``: top device kernels and the device
+               idle share (trace in ``build/smoke/``).
 
 Then the kernels summary line, the ``nvidia-smi`` name/power-limit line and
 the final ``{"ok": true, ...}`` line. Any failed check raises: the script
@@ -139,6 +150,7 @@ KERNELS = {
                          "src/repro/kernels/telemetry_reduce.py:93"),
     "flash_attention": ("flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:110"),
+    "ssd_intra": ("ssd_intra.cu", "src/repro/kernels/ssd_intra.py:52"),
 }
 SKETCH = dict(bins=48, lo=-12.0, hi=4.0, k=4)  # hist:48, the default topk
 
@@ -409,6 +421,43 @@ def _case_flash(geom, dtype, seed):
             lambda: (sdpa(qt, kt, vt, enable_gqa=True, **lib_kw),))
 
 
+def _case_ssd(shape, dtype, seed, decay=1.0):
+    """(kernel, plain, bytes, flops, library) of an SSD intra-chunk case:
+    x [B, Nc, Lc, H, P], dt, a_cs [B, Nc, Lc, H] (a_cs the cumulative sum
+    of -softplus(normal) * decay), Bm, Cm [B, Nc, Lc, N] from seed. Bytes:
+    every operand read once, y written once; operations: 2 N for C B^T
+    once per (batch, chunk) plus 2 P for W @ x per head, each times the
+    Lc (Lc + 1) / 2 causal pairs (j <= i) of a chunk, so a masked-out
+    pair is not billed. The library call is the two batched
+    torch.matmul products alone, C B^T and W @ x (W precomputed, x in a
+    head-major copy), without mask or exp."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_intra as KS
+
+    B, Nc, Lc, H, P, N = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*sh):
+        return torch.randn(sh, generator=gen, device="cuda")
+
+    sp = lambda t: torch.logaddexp(t, torch.zeros_like(t))  # noqa: E731
+    x = randn(B, Nc, Lc, H, P)
+    dt = sp(randn(B, Nc, Lc, H))
+    a_cs = torch.cumsum(-sp(randn(B, Nc, Lc, H)) * decay, dim=2)
+    bm, cm = randn(B, Nc, Lc, N), randn(B, Nc, Lc, N)
+    x, dt, a_cs, bm, cm = (t.to(dtype) for t in (x, dt, a_cs, bm, cm))
+    es = x.element_size()
+    w = randn(B, Nc, H, Lc, Lc).to(dtype)
+    xh = x.permute(0, 1, 3, 2, 4).contiguous()
+    bt = bm.transpose(-1, -2)
+    chunks = B * Nc
+    return (lambda: (KS.ssd_intra(x, dt, a_cs, bm, cm),),
+            lambda: (ref.ssd_intra(x, dt, a_cs, bm, cm),),
+            (2 * x.numel() + 2 * dt.numel() + 2 * bm.numel()) * es,
+            chunks * Lc * (Lc + 1) * (N + H * P),
+            lambda: (torch.matmul(cm, bt), torch.matmul(w, xh)))
+
+
 #: labels of the cases timed (their first float32 case); "main" is the
 #: one the summary line reports.
 TIMED = ("main", "gossip_arena", "one_client_gossip_arena", "qwen3_prefill")
@@ -416,9 +465,15 @@ TIMED = ("main", "gossip_arena", "one_client_gossip_arena", "qwen3_prefill")
 #: fedlm-100m at batch 4 and 2048 tokens, qwen3-1.7b at 8192 tokens.
 FLASH_FEDLM = (4, 2048, 2048, 5, 2, 64, "causal", 0, 0)
 FLASH_QWEN3 = (1, 8192, 8192, 8, 2, 128, "sliding", 4096, 0)
-#: forms held to a tolerance instead of 0 (rtol = atol), by dtype: flash
-#: attention sums its dot products in another order than the einsums.
-TOLERANCE = {"flash_attention": {torch.float32: 2e-5, torch.bfloat16: 5e-2}}
+#: (B, Nc, Lc, H, P, N) of mamba2-130m's prefill at batch 4, 2048 tokens.
+SSD_MAMBA2 = (4, 16, 128, 24, 64, 128)
+#: forms held to a tolerance instead of 0, by dtype: flash attention and
+#: the SSD term sum their products in another order than the einsums.
+TOLERANCE = {"flash_attention": {torch.float32: 2e-5, torch.bfloat16: 5e-2},
+             "ssd_intra": {torch.float32: 1e-4, torch.bfloat16: 1e-2}}
+#: forms whose tolerance is a share of the output's scale (max |plain|);
+#: the others' is rtol = atol, element by element.
+SCALED = ("ssd_intra",)
 #: launches and iterations of a timing (the plain flash version at the
 #: qwen3 shape takes ~0.45 s a call).
 TIMING = {"flash_attention": dict(iters=5, warmup=1)}
@@ -447,7 +502,23 @@ def _cases(form):
                 ("bidirectional_d16", (2, 200, 333, 2, 2, 16,
                                        "bidirectional", 0, 0), f32, f),
                 ("g8_d256", (1, 1000, 1000, 1, 8, 256, "causal", 0, 0), f32,
-                 f)]
+                 f),
+                ("no_key_rows_chunked", (1, 520, 300, 2, 2, 64, "chunked", 0,
+                                         64), f32, f),
+                ("no_key_rows_sliding", (2, 200, 100, 1, 8, 32, "sliding",
+                                         16, 0), f32, f)]
+    if form == "ssd_intra":  # shape: (B, Nc, Lc, H, P, N)
+        bf16, d = torch.bfloat16, _case_ssd
+        sweep = [(1, 1, 8, 1, 4, 4), (2, 3, 16, 2, 8, 8),
+                 (1, 2, 128, 3, 64, 32)]
+        return ([("main", SSD_MAMBA2, f32, d)]
+                + [(f"sweep_{i}", sh, dt, d) for i, sh in enumerate(sweep)
+                   for dt in (f32, bf16)]
+                + [("ragged_37", (2, 3, 37, 5, 24, 40), f32, d),
+                   ("decay_1e3", (1, 2, 128, 2, 16, 16), f32,
+                    lambda sh, dt, i: d(sh, dt, i, decay=11.0)),
+                   ("p_128", (1, 2, 128, 3, 128, 64), f32, d),
+                   ("uneven_head_groups", (4, 25, 16, 7, 8, 8), f32, d)])
     if form == "telemetry_sketch":
         k = _case_sketch
 
@@ -557,7 +628,7 @@ def _excess(got, want, tol, chunk=1 << 27) -> float:
 def phase_kernels():
     """Every kernel form against its plain version: bitwise (tolerance 0)
     for the forms built with --fmad=false and one fixed sum order, within
-    TOLERANCE for flash attention."""
+    TOLERANCE for flash attention and the SSD term."""
     from repro_torch.kernels import library as L
 
     results = {}
@@ -571,7 +642,10 @@ def phase_kernels():
             want = plain()
             err = _max_err(got, want)
             tol = TOLERANCE.get(form, {}).get(dtype, 0.0)
-            excess = _excess(got, want, tol) if tol else err
+            if form in SCALED:
+                excess = err / max(float(t.abs().max()) for t in want)
+            else:
+                excess = _excess(got, want, tol) if tol else err
             if form in REPEATED:
                 err = max(err, _max_err(kern(), got))
                 excess = err
@@ -579,7 +653,9 @@ def phase_kernels():
             torch.cuda.synchronize()
             errs.append({"case": label, "shape": list(shape),
                          "dtype": str(dtype)[6:], "max_abs_err": err,
-                         "tolerance": tol})
+                         "tolerance": tol,
+                         **({"err_of_scale": excess} if form in SCALED
+                            else {})})
             check(excess <= tol, f"{form} {label} {shape} {dtype}: kernel "
                                  f"differs from its plain version (or from "
                                  f"its own repeat) by {err} (tolerance "
@@ -1135,23 +1211,32 @@ def phase_train():
 
 
 #: serve paths: full width, float32, random weights from seed 0, the
-#: reference's prompt draw (make_batch under seed 1).
+#: reference's prompt draw (make_batch under seed 1); the kernel each
+#: prefill launches once per layer, and the limit of prefill + decode
+#: against ``forward`` (None: not checked; S2's sliding forward would take
+#: the blockwise path over 8192 tokens).
 SERVE = {"S1_fedlm_100m": dict(arch="fedlm-100m", batch=4, prompt=2048,
-                               gen=64),
+                               gen=64, kernel="flash_attention",
+                               forward_tol=1e-4),
          "S2_qwen3_1p7b": dict(arch="qwen3-1.7b", batch=1, prompt=8192,
-                               gen=32)}
+                               gen=32, kernel="flash_attention",
+                               forward_tol=None),
+         "S3_mamba2_130m": dict(arch="mamba2-130m", batch=4, prompt=2048,
+                                gen=64, kernel="ssd_intra",
+                                forward_tol=2e-3)}
 SERVE_TOL = 1e-4   # logits: max |kernel run - plain run| / max |plain run|
+PALLAS_SSD_TOL = 2e-4  # forward with use_pallas_ssd vs plain, rtol = atol
 
 
-def _plain_attention():
-    """Route ``ops.flash_attention`` to its plain version; returns an undo."""
+def _plain(kernel):
+    """Route ``ops.<kernel>`` to its plain version; returns an undo."""
     from repro_torch.kernels import ops
 
-    real = ops.flash_attention
-    ops.flash_attention = lambda *a, **kw: real(*a, **{**kw, "impl": "ref"})
+    real = getattr(ops, kernel)
+    setattr(ops, kernel, lambda *a, **kw: real(*a, **{**kw, "impl": "ref"}))
 
     def undo():
-        ops.flash_attention = real
+        setattr(ops, kernel, real)
 
     return undo
 
@@ -1203,7 +1288,7 @@ def _decode_trace(name, model, params, prompt, tokens, steps=4):
 def _serve_path(name, spec):
     """Drive ``generate_tokens`` once (launches counted, prefill and each
     decode step timed with CUDA events), then hold its logits against the
-    same run with the plain attention on the card."""
+    same run with the kernel's plain version on the card."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import library as L
     from repro_torch.launch import input_specs, serve
@@ -1232,9 +1317,12 @@ def _serve_path(name, spec):
     spans = {k: [s.elapsed_time(e) for key, s, e in timeline.open if key == k]
              for k in ("prefill", "decode")}
     del model.prefill, model.decode_step
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"{name}: flash_attention launched {launches['flash_attention']} "
-          f"times in one prefill, not {cfg.n_layers}")
+    kernel = spec["kernel"]
+    check(launches[kernel] == cfg.n_layers,
+          f"{name}: {kernel} launched {launches[kernel]} times in one "
+          f"prefill, not {cfg.n_layers}")
+    others = {k: n for k, n in launches.items() if k != kernel and n}
+    check(not others, f"{name}: other kernels launched: {others}")
     B, n = tokens.shape
     decode_s = sum(spans["decode"]) / 1e3
     out = {"phase": "serve", "path": name, "arch": cfg.name,
@@ -1249,7 +1337,7 @@ def _serve_path(name, spec):
            "tokens_head": tokens[0, :8].tolist()}
 
     got = _teacher_forced(model, params, prompt, tokens)
-    undo = _plain_attention()
+    undo = _plain(kernel)
     try:
         want = _teacher_forced(model, params, prompt, tokens)
     finally:
@@ -1270,18 +1358,39 @@ def _serve_path(name, spec):
     check(out["decode_logits_rel_err"] <= SERVE_TOL,
           f"{name}: decode logits differ from the plain run by "
           f"{out['decode_logits_rel_err']} of their scale")
-    if cfg.attention == "full":  # forward takes the blockwise plain path
-        toks = prompt["tokens"]
+    toks = prompt["tokens"]
+    full = None  # forward over the S tokens; it takes the plain path
+    if spec["forward_tol"] is not None or kernel == "ssd_intra":
         with torch.no_grad():
-            full = model.forward(params, {"tokens": toks})[:, -2:]
+            full = model.forward(params, {"tokens": toks})
+    if spec["forward_tol"] is not None:
+        with torch.no_grad():
             caches = model.init_caches(B, toks.shape[1], device="cuda")
             pre, caches = model.prefill(params, {"tokens": toks[:, :-1]},
                                         caches)
             dec, _ = model.decode_step(params, toks[:, -1:], caches)
-        fwd = max(_rel(pre[:, 0], full[:, 0]), _rel(dec[:, 0], full[:, 1]))
+        fwd = max(_rel(pre[:, 0], full[:, -2]), _rel(dec[:, 0], full[:, -1]))
         out["prefill_decode_vs_forward_rel_err"] = fwd
-        check(fwd <= SERVE_TOL, f"{name}: prefill + decode differ from "
-                                f"forward by {fwd} of their scale")
+        check(fwd <= spec["forward_tol"],
+              f"{name}: prefill + decode differ from forward by {fwd} of "
+              f"their scale (limit {spec['forward_tol']})")
+    if kernel == "ssd_intra":  # the use_pallas_ssd forward, S tokens
+        pallas = build_model(dataclasses.replace(cfg, use_pallas_ssd=True))
+        with torch.no_grad():
+            got_f = pallas.forward(params, {"tokens": toks})
+        excess = _excess((got_f,), (full,), PALLAS_SSD_TOL)
+        out.update(pallas_ssd_forward_max_abs_err=_max_err((got_f,),
+                                                           (full,)),
+                   pallas_ssd_forward_finite=bool(
+                       torch.isfinite(got_f).all()))
+        del got_f
+        check(out["pallas_ssd_forward_finite"]
+              and excess <= PALLAS_SSD_TOL,
+              f"{name}: the use_pallas_ssd forward differs from the plain "
+              f"one beyond rtol = atol = {PALLAS_SSD_TOL}")
+        state = model.init_caches(B, 1, device="cuda").state
+        out["decode_state_bytes_per_layer"] = (
+            state[0].numel() * state.element_size())
     out["decode_trace"] = _decode_trace(name, model, params, prompt, tokens)
     emit(out)
     return launches
@@ -1289,8 +1398,9 @@ def _serve_path(name, spec):
 
 def phase_serve():
     """The serving path at full width: S1 fedlm-100m (batch 4, prompt
-    2048, 64 tokens) and S2 qwen3-1.7b (batch 1, prompt 8192 through a
-    4096-token ring cache, 32 tokens)."""
+    2048, 64 tokens), S2 qwen3-1.7b (batch 1, prompt 8192 through a
+    4096-token ring cache, 32 tokens) and S3 mamba2-130m (batch 4, prompt
+    2048, 64 tokens)."""
     gc.collect()
     torch.cuda.empty_cache()
     launches = {}
@@ -1309,7 +1419,8 @@ OWNER = {"fedcet_v": "B_shift_q8_arena", "fedcet_comm": "A_dense",
          "fedcet_round_tail": "B_shift_q8_arena",
          "gossip_reduce": "E_ring_sparse_arena",
          "telemetry_sketch": TELEMETRY_PATH,
-         "flash_attention": "S1_fedlm_100m"}
+         "flash_attention": "S1_fedlm_100m",
+         "ssd_intra": "S3_mamba2_130m"}
 
 
 def main() -> int:

@@ -25,7 +25,11 @@ and a CUDA kernel for the per-client norm-histogram sketch
 (``kernels/csrc/telemetry_reduce.cu``). Slice 5: the serving path
 (``launch/serve.py``: KV-cached prefill and decode; ``models/attention.py``
 whole; ``configs/qwen3_1p7b.py``) and a CUDA kernel for grouped-GQA flash
-attention (``kernels/csrc/flash_attention.cu``).
+attention (``kernels/csrc/flash_attention.cu``). Slice 6: the Mamba2
+(ssm) family (``models/mamba2.py``, ``models/ssm_lm.py``,
+``configs/mamba2_130m.py``) on the serving path, and a CUDA kernel for the
+SSD intra-chunk term (``kernels/csrc/ssd_intra.cu``), the last of the
+reference's TPU kernels.
 """
 
 import torch

@@ -1,13 +1,15 @@
 """Registry of the architectures the port runs (port of
-``src/repro/configs/__init__.py``): ``fedlm-100m`` (slice 1) and
-``qwen3-1.7b`` (the serving slice); the other architectures of the
-reference come with the model families that run them."""
+``src/repro/configs/__init__.py``): ``fedlm-100m`` (slice 1),
+``qwen3-1.7b`` (the serving slice) and ``mamba2-130m`` (the ssm family);
+the other architectures of the reference come with the model families
+that run them."""
 
-from repro_torch.configs import fedlm_100m, qwen3_1p7b
+from repro_torch.configs import fedlm_100m, mamba2_130m, qwen3_1p7b
 from repro_torch.configs.base import ArchConfig
 
 _REGISTRY: dict[str, ArchConfig] = {c.name: c for c in (fedlm_100m.CONFIG,
-                                                        qwen3_1p7b.CONFIG)}
+                                                        qwen3_1p7b.CONFIG,
+                                                        mamba2_130m.CONFIG)}
 
 
 def registry() -> dict[str, ArchConfig]:

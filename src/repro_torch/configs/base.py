@@ -71,9 +71,9 @@ class ArchConfig:
     remat: bool = True
     scan_layers: bool = True
     attn_block_size: int = 512
-    #: the reference's Pallas attention / SSD switches: the attention one
-    #: sends the model's forward through the flash-attention kernel; the
-    #: SSD kernel is not ported yet.
+    #: the reference's Pallas attention / SSD switches: they send the
+    #: model's forward through the flash-attention / SSD intra-chunk
+    #: kernel (neither has a backward).
     use_pallas_attention: bool = False
     use_pallas_ssd: bool = False
 

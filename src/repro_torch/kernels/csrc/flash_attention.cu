@@ -51,10 +51,15 @@
 // query's chunk start). That is the reference's result: a tile it visits
 // with every score masked adds exp(0) junk to a row whose allowed keys come
 // later, and the first allowed tile's alpha = exp(-1e30 - m) = 0 wipes it;
-// a row whose allowed keys came earlier gets p = exp(-1e30 - m) = 0. Only a
-// row with no allowed key at all differs: the reference averages v over
-// the masked keys, the kernel writes 0. Row tiles run last first, so the
-// causal mask's longest blocks start first. Offsets are 64-bit.
+// a row whose allowed keys came earlier gets p = exp(-1e30 - m) = 0. A row
+// with no allowed key at all (only where kv_len != S: a chunk that starts
+// at or after kv_len, a sliding row with qpos - window >= kv_len - 1) sees
+// -1e30 in every tile the reference visits, pad keys (zero rows) included,
+// so there p = exp(0) = 1 for all nk * kv_blk of its keys (kv_blk =
+// min(256, kv_len), nk = ceil(kv_len / kv_blk)) and it returns
+// sum_{t < kv_len} v_t / (nk * kv_blk). A block that holds such a row makes
+// one more pass over all of V for it and writes that. Row tiles run last
+// first, so the causal mask's longest blocks start first. Offsets are 64-bit.
 //
 // Tiles (BR rows, BK keys): D <= 64: 64 x 64; D = 128: 64 x 32; D = 256:
 // 32 x 32; shared memory 34-105 KB, dynamic (above the 48 KB static
@@ -145,6 +150,18 @@ __device__ __forceinline__ bool allowed(int kind, long long qp, long long kp,
   }
   return ok;
 }
+
+// Whether query qp has any allowed key in [0, kv_len).
+__device__ __forceinline__ bool has_key(int kind, long long qp,
+                                        long long kv_len, int window,
+                                        int chunk) {
+  if (kind == kSliding) return qp - window < kv_len - 1;
+  if (kind == kChunked) return (qp / chunk) * chunk < kv_len;
+  return true;  // causal (key 0) and bidirectional
+}
+
+// The reference kernel's kv tile (kernels/ref.py:flash_attention's kv_blk).
+constexpr long long kRefKvBlock = 256;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads)
@@ -306,6 +323,51 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
         for (int c = 0; c < C::CPT; ++c) {
           acc[i][c] = __fmaf_rn(pv[i], vv[c], acc[i][c]);
+        }
+      }
+    }
+  }
+
+  // Rows with no allowed key: sum all of V, over the reference's count.
+  bool empty[C::RPT];
+  int any_empty = 0;
+#pragma unroll
+  for (int i = 0; i < C::RPT; ++i) {
+    empty[i] = qpos[i] >= 0 && !has_key(kind, qpos[i], kv_len, window, chunk);
+    any_empty |= empty[i];
+  }
+  if (__syncthreads_or(any_empty)) {
+    const long long ref_blk = kv_len < kRefKvBlock ? kv_len : kRefKvBlock;
+    const float ref_keys = static_cast<float>(
+        (kv_len + ref_blk - 1) / ref_blk * ref_blk);
+#pragma unroll
+    for (int i = 0; i < C::RPT; ++i) {
+      if (!empty[i]) continue;
+      l[i] = ref_keys;
+#pragma unroll
+      for (int c = 0; c < C::CPT; ++c) acc[i][c] = 0.f;
+    }
+    for (long long key0 = 0; key0 < kv_len; key0 += C::BK) {
+      __syncthreads();  // the last tile's V is read
+      for (int c = tid; c < C::BK * CH; c += kFlashThreads) {
+        const int j = c / CH, col = (c % CH) * N;
+        float* dv = sV + j * C::LD + col;
+        if (key0 + j < kv_len) {
+          Pack<T>::load(v + ((b * kv_len + key0 + j) * Hkv + h) * D + col, dv);
+        } else {
+          zero4(dv, N);
+        }
+      }
+      __syncthreads();
+      for (int kk = 0; kk < C::BK; ++kk) {
+#pragma unroll
+        for (int c = 0; c < C::CPT; ++c) {
+          const float vv = sV[kk * C::LD + (c / C::VW) * (8 * C::VW) +
+                              tc * C::VW + c % C::VW];
+#pragma unroll
+          for (int i = 0; i < C::RPT; ++i) {
+            if (empty[i]) acc[i][c] += vv;
+          }
         }
       }
     }

@@ -35,7 +35,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``h``) under the ``kind`` mask (causal, sliding with ``window >= 1``,
     chunked with ``chunk >= 1``, bidirectional), in float32 or bfloat16.
     Returns ``[B, S, Hq, D]`` in q's dtype. A query row with no allowed key
-    comes out 0 (the reference averages its masked values there)."""
+    (possible only when ``T != S``) comes out as the reference's kernel
+    gives it: ``sum_{t<T} v_t / (nk * kv_blk)`` with ``kv_blk = min(256,
+    T)`` and ``nk = ceil(T / kv_blk)``, every key and pad key weighted
+    ``exp(0) = 1``."""
     sfx = L.check("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"flash_attention: q must be [B, S, Hq, D] and k, v "

@@ -10,10 +10,10 @@ them rebuilds it. Nothing is built or loaded at import time.
 
 Each kernel wrapper (``kernels/fedcet_update.py``, ``kernels/quantize.py``,
 ``kernels/gossip_reduce.py``, ``kernels/telemetry_reduce.py``,
-``kernels/flash_attention.py``) checks device, dtype, contiguity and shape,
-allocates its outputs with ``torch.empty``, launches on PyTorch's current
-stream, raises if the launch reports an error, and adds one to its entry
-of :data:`LAUNCHES`.
+``kernels/flash_attention.py``, ``kernels/ssd_intra.py``) checks device,
+dtype, contiguity and shape, allocates its outputs with ``torch.empty``,
+launches on PyTorch's current stream, raises if the launch reports an
+error, and adds one to its entry of :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 #: --fmad=false: products and sums round once each, like the plain PyTorch
 #: expressions, so the card checks can hold a tolerance of 0. The flash
-#: attention kernel, held to a tolerance instead, writes its inner
-#: products with explicit __fmaf_rn, which the flag leaves alone.
+#: attention and SSD kernels, held to a tolerance instead, write their
+#: inner products with explicit __fmaf_rn, which the flag leaves alone.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -43,7 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"fedcet_v": 0, "fedcet_comm": 0, "fedcet_comm4": 0,
             "stochastic_quantize": 0, "stochastic_quantize_rows": 0,
             "fedcet_round_tail": 0, "gossip_reduce": 0,
-            "telemetry_sketch": 0, "flash_attention": 0}
+            "telemetry_sketch": 0, "flash_attention": 0, "ssd_intra": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -61,9 +61,11 @@ _SIGNATURES = {
     "telemetry_sketch": [_ptr] * 4 + [_i64, _i64, _i32, _i32, "T", "T", _i32,
                                       _ptr],
     "flash_attention": [_ptr] * 4 + [_i64] * 3 + [_i32] * 6 + [_ptr],
+    "ssd_intra": [_ptr] * 6 + [_i64] + [_i32] * 5 + [_ptr],
 }
 #: the float types each entry point is built for (default: f32 and f64).
-_BUILT_FOR = {"flash_attention": ("f32", "bf16")}
+_BUILT_FOR = {"flash_attention": ("f32", "bf16"),
+              "ssd_intra": ("f32", "bf16")}
 #: counted forms that share another form's C entry point.
 _ENTRY = {"fedcet_comm4": "fedcet_comm",
           "stochastic_quantize_rows": "stochastic_quantize"}

@@ -1,8 +1,8 @@
 """Public wrappers of the port's kernels (port of
 ``src/repro/kernels/ops.py``: ``fedcet_v``, ``fedcet_comm``,
 ``stochastic_quantize``, ``stochastic_quantize_rows``,
-``fedcet_round_tail``, ``gossip_reduce``, ``telemetry_sketch`` and
-``flash_attention``).
+``fedcet_round_tail``, ``gossip_reduce``, ``telemetry_sketch``,
+``flash_attention`` and ``ssd_intra``).
 
 ``impl`` selects the implementation:
 
@@ -26,6 +26,7 @@ from repro_torch.kernels import flash_attention as KF
 from repro_torch.kernels import gossip_reduce as KG
 from repro_torch.kernels import quantize as KQ
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import ssd_intra as KS
 from repro_torch.kernels import telemetry_reduce as KT
 
 
@@ -167,3 +168,14 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
         return KF.flash_attention(q, k, v, kind=kind, window=window,
                                   chunk=chunk)
     return R.flash_attention(q, k, v, kind=kind, window=window, chunk=chunk)
+
+
+def ssd_intra(x, dt, a_cs, Bm, Cm, impl: str = "auto"):
+    """The Mamba2 SSD intra-chunk term (see kernels/ssd_intra.py; plain
+    version: kernels/ref.py:ssd_intra): x ``[B, Nc, Lc, H, P]``, dt and
+    a_cs ``[B, Nc, Lc, H]``, Bm and Cm ``[B, Nc, Lc, N]``. Returns x's
+    shape and dtype. The CUDA kernel takes float32 and bfloat16 and has no
+    backward; the plain version also takes float64 and autograd."""
+    if _use_kernel(impl, x):
+        return KS.ssd_intra(x, dt, a_cs, Bm, Cm)
+    return R.ssd_intra(x, dt, a_cs, Bm, Cm)

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (port of
-``src/repro/kernels/ref.py:8-59, 79-119``, and the math of the Pallas
+``src/repro/kernels/ref.py``, and the math of the Pallas
 flash-attention kernel, ``src/repro/kernels/flash_attention.py``), term
 for term: the CPU path of ``kernels/ops.py`` and the yardstick the CUDA
 kernels are held against."""
@@ -75,6 +75,27 @@ def fedcet_round_tail(v, h, d, u, scale, w, den, *, c: float, alpha: float,
     m_bar = (acc / den.reshape(()))[None]
     delta = recon - m_bar
     return d + c * delta, v - (c * alpha) * delta, h + beta * qs
+
+
+def ssd_intra(x, dt, a_cs, Bm, Cm):
+    """The Mamba2 SSD intra-chunk term (``src/repro/kernels/ref.py:62``):
+    ``y_i = sum_{j<=i} (C_i . B_j) exp(a_cs_i - a_cs_j) dt_j x_j`` per
+    (batch, chunk, head), with x ``[B, Nc, Lc, H, P]``, dt and a_cs
+    ``[B, Nc, Lc, H]``, Bm and Cm ``[B, Nc, Lc, N]``. Sums in float32;
+    returns x's shape and dtype. The causal mask goes on BEFORE the exp:
+    an acausal entry has ``a_cs_i - a_cs_j > 0`` and would overflow."""
+    cb = torch.einsum("bcin,bcjn->bcij", Cm.to(torch.float32),
+                      Bm.to(torch.float32))
+    acs = a_cs.to(torch.float32)
+    seg = acs[:, :, :, None, :] - acs[:, :, None, :, :]      # [B,Nc,i,j,H]
+    lc = x.shape[2]
+    causal = torch.tril(torch.ones((lc, lc), dtype=torch.bool,
+                                   device=x.device))[None, None, :, :, None]
+    seg = torch.where(causal, seg, -math.inf)
+    w = cb[..., None] * torch.exp(seg)
+    y = torch.einsum("bcijh,bcjh,bcjhp->bcihp", w, dt.to(torch.float32),
+                     x.to(torch.float32))
+    return y.to(x.dtype)
 
 
 def stochastic_quantize(a, u, scale, bits: int):

@@ -4,7 +4,7 @@
 A text batch is ``{"tokens": [B, S] int32}``. ``make_batch`` draws the
 reference's tokens bit for bit: the same key splits and ``randint`` draws
 through ``core/prng.py``. The VLM and audio inputs (image embeddings,
-encoder frames) come with those families (ROADMAP.md Queue 1 item 11);
+encoder frames) come with those families (ROADMAP.md Queue 1 item 6);
 the ``ShapeDtypeStruct`` stand-ins of the dry-run have no counterpart.
 """
 
@@ -21,7 +21,7 @@ def batch_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family} inputs are not yet ported (ROADMAP.md "
-            "Queue 1 item 11); the port builds text batches")
+            "Queue 1 item 6); the port builds text batches")
     return {"tokens": ((batch, seq_len), torch.int32)}
 
 

@@ -1,21 +1,27 @@
 """Serving entry point, single host (port of ``src/repro/launch/serve.py``:
-``generate`` and its CLI): a batched prefill that fills the per-layer KV
+``generate`` and its CLI): a batched prefill that fills the per-layer
 caches, then token-by-token decode against them.
 
-The prefill runs every layer's full-sequence attention through the
-flash-attention kernel (``kernels/csrc/flash_attention.cu``) on the card,
-its plain version on the CPU; decode attends one token against the cache
-(``models/attention.py:attend_decode``). Tokens are greedy (argmax) or
+For the dense family the prefill runs every layer's full-sequence
+attention through the flash-attention kernel
+(``kernels/csrc/flash_attention.cu``) on the card, its plain version on
+the CPU, and decode attends one token against the KV cache
+(``models/attention.py:attend_decode``). For the ssm family (mamba2-130m)
+the prefill runs every block's intra-chunk SSD term through the SSD kernel
+(``kernels/csrc/ssd_intra.cu``) and fills a constant-size state, which
+decode advances one token at a time. Tokens are greedy (argmax) or
 sampled with ``jax.random.categorical``'s draws (``core/prng.py``), so a
 run from the reference's weights and prompt emits the reference's tokens.
 ``lower_prefill`` and ``lower_decode`` (XLA AOT lowering over a mesh) wait
-for ``launch/{mesh,partition}.py`` (ROADMAP.md Queue 1 item 12).
+for ``launch/{mesh,partition}.py`` (ROADMAP.md Queue 1 item 7).
 
 Run as a script:
     python -m repro_torch.launch.serve --arch fedlm-100m --full \\
         --prompt-len 2048 --gen-len 64 --batch 4
     python -m repro_torch.launch.serve --arch qwen3-1.7b --full \\
         --prompt-len 8192 --gen-len 32 --batch 1
+    python -m repro_torch.launch.serve --arch mamba2-130m --full \\
+        --prompt-len 2048 --gen-len 64 --batch 4
     python -m repro_torch.launch.serve --arch fedlm-100m --prompt-len 32 \\
         --gen-len 8 --batch 2 --device cpu
 """

@@ -1,8 +1,8 @@
 """Shared building blocks (port of ``src/repro/models/layers.py``): pure
 functions over parameter dicts, with the reference's layouts (dense
-weights ``[d_in, d_out]``, used as ``x @ w``) and its numerics: RMSNorm
-and RoPE compute in float32 whatever the input dtype, exactly where the
-reference casts."""
+weights ``[d_in, d_out]``, used as ``x @ w``) and its numerics: RMSNorm,
+LayerNorm and RoPE compute in float32 whatever the input dtype, exactly
+where the reference casts."""
 
 from __future__ import annotations
 
@@ -10,6 +10,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name."""
+    return _DTYPES[name]
 
 
 # --------------------------------------------------------------------- init
@@ -28,9 +36,16 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, *,
             * 0.02).to(dtype)
 
 
-def init_norm(d: int, dtype, *, lead: tuple = (), device=None) -> dict:
-    """RMSNorm weight stored as a delta around 1 (zeros = identity)."""
-    return {"weight": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+def init_norm(d: int, dtype, *, with_bias: bool = False, lead: tuple = (),
+              device=None) -> dict:
+    """LayerNorm ``weight`` (ones) and ``bias`` (zeros) when ``with_bias``;
+    else the RMSNorm weight, stored as a delta around 1 (zeros =
+    identity)."""
+    shape = lead + (d,)
+    if with_bias:
+        return {"weight": torch.ones(shape, dtype=dtype, device=device),
+                "bias": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"weight": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 # -------------------------------------------------------------------- norms
@@ -41,6 +56,24 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
     var = torch.mean(x * x, dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + weight.to(torch.float32))).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    return (out * weight.to(torch.float32)
+            + bias.to(torch.float32)).to(dtype)
+
+
+def apply_norm(x: torch.Tensor, params: dict,
+               kind: str = "rmsnorm") -> torch.Tensor:
+    if kind == "layernorm":
+        return layer_norm(x, params["weight"], params["bias"])
+    return rms_norm(x, params["weight"])
 
 
 # --------------------------------------------------------------------- rope

@@ -33,15 +33,10 @@ from repro_torch.models.layers import (
     init_mlp,
     init_norm,
     rms_norm,
+    torch_dtype,
 )
 from repro_torch.models.losses import chunked_ce
-
-_DTYPES = {"float32": torch.float32, "float64": torch.float64,
-           "bfloat16": torch.bfloat16}
-
-
-def torch_dtype(name: str) -> torch.dtype:
-    return _DTYPES[name]
+from repro_torch.utils.tree import tree_index
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, *, lead: tuple = (),
@@ -113,7 +108,7 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(bad)} not yet ported (the port runs "
                 "the dense RMSNorm/SwiGLU transformer; ROADMAP.md Queue 1 "
-                "item 11)")
+                "item 6)")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ init
@@ -149,7 +144,7 @@ class TransformerLM(nn.Module):
         x = self._embed(params, tokens)
         if cfg.scan_layers:
             for i in range(cfg.n_layers):
-                x = apply_block(_index(params["layers"], i), x, cfg)
+                x = apply_block(tree_index(params["layers"], i), x, cfg)
         else:
             for p in params["layers"]:
                 x = apply_block(p, x, cfg)
@@ -206,8 +201,8 @@ class TransformerLM(nn.Module):
             for i in range(cfg.n_layers):
                 view = attn.KVCache(caches.k[i], caches.v[i], caches.pos[i],
                                     caches.length)
-                x, cache = block(_index(params["layers"], i), x, view, cfg,
-                                 ring=ring)
+                x, cache = block(tree_index(params["layers"], i), x, view,
+                                 cfg, ring=ring)
             return x, caches._replace(length=cache.length)
         new = []
         for p, cache in zip(params["layers"], caches):
@@ -231,9 +226,3 @@ class TransformerLM(nn.Module):
                                              apply_block_decode)
         x = rms_norm(x, params["final_norm"]["weight"])
         return x @ self._head(params), caches
-
-
-def _index(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]

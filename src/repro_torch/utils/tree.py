@@ -27,6 +27,12 @@ def tree_map(fn, tree, *rest):
         [fn(*args) for args in zip(leaves, *others)], spec)
 
 
+def tree_index(tree, i: int):
+    """Entry ``i`` of the leading axis of every leaf: one layer of a
+    stacked ``[L, ...]`` parameter tree."""
+    return tree_map(lambda t: t[i], tree)
+
+
 def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
 

@@ -4,7 +4,8 @@ the JAX package on the CPU, on the same numpy inputs and parameters.
 
 * Plain flash attention against the reference's Pallas kernel (interpret
   mode) and against its ``attend_naive``: every mask kind, G in {1, 2, 4},
-  tiles that do not divide S, T != S. Tolerance: rtol = atol = 2e-5 in
+  tiles that do not divide S, T != S, and query rows with no allowed key
+  (chunked and sliding with T < S), whose value the CUDA kernel matches. Tolerance: rtol = atol = 2e-5 in
   float32 (the reference kernel's own bound against naive attention,
   ``tests/test_kernels.py``), 5e-2 in bfloat16.
 * ``attend_blockwise`` at a small block size and ``attention()`` at
@@ -78,6 +79,34 @@ def test_plain_flash_with_t_unlike_s_matches_the_pallas_kernel(S, T):
     got = ref.flash_attention(*_t(q, k, v), q_blk=16, kv_blk=16)
     want = jops.flash_attention(q, k, v, q_blk=16, kv_blk=16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("kind,S,T", [("chunked", 520, 300),
+                                      ("sliding", 200, 100)])
+def test_plain_flash_rows_with_no_allowed_key_match_the_pallas_kernel(
+        kind, S, T):
+    """T < S leaves query rows with no allowed key (a chunk of 64 that
+    starts at or after T; a sliding row with qpos - 16 >= T - 1). The
+    reference's kernel, at its default tiles, gives them every key and pad
+    key the weight exp(0) = 1: sum_{t<T} v_t / (nk * kv_blk), kv_blk =
+    min(256, T). The plain version, which the CUDA kernel is held to on
+    the card, gives the same."""
+    jax, jops, JA = _jax()
+    G = 2
+    q, k, v = _qkv(1, S, T, 2, G, 16, seed=S)
+    kw = dict(kind=kind, window=16, chunk=64)
+    got = ref.flash_attention(*_t(q, k, v), **kw).numpy()
+    np.testing.assert_allclose(got, np.asarray(jops.flash_attention(
+        q, k, v, **kw)), **TOL)
+    qpos = np.arange(S)
+    empty = ((qpos // 64) * 64 >= T if kind == "chunked"
+             else qpos - 16 >= T - 1)
+    assert 0 < empty.sum() < S
+    blk = min(256, T)
+    mean = np.repeat(v.sum(axis=1) / (-(-T // blk) * blk), G, axis=1)
+    np.testing.assert_allclose(got[:, empty],
+                               np.broadcast_to(mean[:, None],
+                                               got[:, empty].shape), **TOL)
 
 
 def test_plain_flash_bf16_matches_the_pallas_kernel():

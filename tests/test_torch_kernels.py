@@ -3,8 +3,9 @@ versions: the FedCET triad and pair, the dithered quantizer (one scale per
 leaf, and one per arena row), the fused round tail, the gossip neighbor
 reduce (its CPU tests against the JAX package are in
 ``tests/test_torch_gossip.py``), the telemetry client sketch (its CPU
-tests in ``tests/test_torch_telemetry_dist.py``) and flash attention (its
-CPU tests in ``tests/test_torch_attention.py``).
+tests in ``tests/test_torch_telemetry_dist.py``), flash attention (its
+CPU tests in ``tests/test_torch_attention.py``) and the Mamba2 SSD
+intra-chunk term (its CPU tests in ``tests/test_torch_mamba2.py``).
 
 CPU tests: the port's ``ops``/``ref`` (plain versions on a CPU tensor)
 against JAX's ``ref`` and JAX's ``ops`` with ``impl="kernel"`` (the Pallas
@@ -23,7 +24,10 @@ like the plain PyTorch expression and must agree bit for bit; flash
 attention sums its dot products in another order than the plain version's
 einsums, and is held to the reference kernel's own tolerance against
 naive attention (``tests/test_kernels.py``): 2e-5 in float32, 5e-2 in
-bfloat16. These tests
+bfloat16; the SSD kernel widens to float32 and rounds once as its plain
+version does, and is held at the reference's sweep shapes to 1e-4 in
+float32 and 1e-2 (a few bfloat16 ulps) in bfloat16, elsewhere to 1e-4 of
+the output's scale. These tests
 import no JAX, so they also run where JAX is not installed
 (``pytest --noconftest -m cuda``).
 """
@@ -155,11 +159,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     kv = q[:, :, :1].contiguous()
     assert torch.equal(ops.flash_attention(q, kv, kv),
                        ref.flash_attention(q, kv, kv))
+    xs = x.float().reshape(1, 1, 5, 1, 9)
+    ssd = (xs, xs[..., 0].abs(), -xs[..., 0].abs().cumsum(2), xs[:, :, :, 0],
+           xs[:, :, :, 0])
+    assert torch.equal(ops.ssd_intra(*ssd), ref.ssd_intra(*ssd))
     assert set(K.LAUNCHES) == {"fedcet_v", "fedcet_comm", "fedcet_comm4",
                                "stochastic_quantize",
                                "stochastic_quantize_rows",
                                "fedcet_round_tail", "gossip_reduce",
-                               "telemetry_sketch", "flash_attention"}
+                               "telemetry_sketch", "flash_attention",
+                               "ssd_intra"}
     assert not any(K.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.fedcet_v(x, g, d, ALPHA, impl="kernel")
@@ -608,6 +617,11 @@ FLASH_CASES = [
     (1, 200, 333, 3, 2, 64, "causal", 0, 0),
     (1, 333, 200, 1, 8, 128, "causal", 0, 0),
     (2, 129, 129, 5, 2, 64, "sliding", 40, 0),
+    # T < S: rows with no allowed key (a chunk starting at or after T, a
+    # sliding row with qpos - window >= T - 1), two kv tiles of the
+    # reference in the first
+    (1, 520, 300, 2, 2, 64, "chunked", 0, 64),
+    (2, 200, 100, 1, 8, 32, "sliding", 16, 0),
 ]
 
 
@@ -667,3 +681,87 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take():
         ops.flash_attention(q[:, :, :3].contiguous(), k, v)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, k, v, kind="sliding")
+
+
+#: (B, Nc, Lc, H, P, N): the reference's sweep shapes
+#: (``tests/test_kernels.py``).
+SSD_SWEEP = [(1, 1, 8, 1, 4, 4), (2, 3, 16, 2, 8, 8), (1, 2, 128, 3, 64, 32)]
+#: label -> (shape, decay): mamba2-130m's prefill at batch 4 and 2048
+#: tokens; a ragged chunk with P and N off the 16-wide tiles; a_cs falling
+#: to ~-1e3 over a chunk; P = 128 (the widest); 7 heads in two uneven
+#: groups (100 chunks on the card's SMs).
+SSD_CASES = {
+    "main": ((4, 16, 128, 24, 64, 128), 1.0),
+    "ragged_37": ((2, 3, 37, 5, 24, 40), 1.0),
+    "decay_1e3": ((1, 2, 128, 2, 16, 16), 11.0),
+    "p_128": ((1, 2, 128, 3, 128, 64), 1.0),
+    "uneven_head_groups": ((4, 25, 16, 7, 8, 8), 1.0),
+}
+
+
+def _ssd_inputs(shape, dtype, seed=0, decay=1.0):
+    """x, dt, a_cs, Bm, Cm on the card, the reference sweep's
+    distributions (a_cs the cumulative sum of -softplus(normal) * decay)."""
+    B, Nc, Lc, H, P, N = shape
+    g = torch.Generator().manual_seed(seed)
+    sp = lambda t: torch.logaddexp(t, torch.zeros_like(t))  # noqa: E731
+    x = torch.randn((B, Nc, Lc, H, P), generator=g)
+    dt = sp(torch.randn((B, Nc, Lc, H), generator=g))
+    a_cs = torch.cumsum(-sp(torch.randn((B, Nc, Lc, H), generator=g))
+                        * decay, dim=2)
+    bm, cm = (torch.randn((B, Nc, Lc, N), generator=g) for _ in range(2))
+    return [t.to(dtype).cuda() for t in (x, dt, a_cs, bm, cm)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_intra_matches_plain_at_the_reference_shapes(shape, dtype):
+    _need_cuda()
+    from repro_torch.kernels import library as L
+
+    args = _ssd_inputs(shape, dtype, seed=3)
+    before = L.LAUNCHES["ssd_intra"]
+    got = ops.ssd_intra(*args)
+    torch.cuda.synchronize()
+    assert L.LAUNCHES["ssd_intra"] == before + 1
+    want = ops.ssd_intra(*args, impl="ref")
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_cuda_ssd_intra_matches_plain_within_its_scale(case):
+    _need_cuda()
+    shape, decay = SSD_CASES[case]
+    args = _ssd_inputs(shape, torch.float32, seed=4, decay=decay)
+    got = ops.ssd_intra(*args)
+    want = ops.ssd_intra(*args, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_intra_refuses_autograd_and_what_it_does_not_take():
+    _need_cuda()
+    x, dt, a_cs, bm, cm = _ssd_inputs((1, 2, 16, 2, 8, 8), torch.float32)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.ssd_intra(x.requires_grad_(True), dt, a_cs, bm, cm)
+    x = x.detach()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.ssd_intra(*(t.cpu() for t in (x, dt, a_cs, bm, cm)),
+                      impl="kernel")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.ssd_intra(*(t.double() for t in (x, dt, a_cs, bm, cm)))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_intra(x.transpose(3, 4), dt, a_cs, bm, cm)
+    with pytest.raises(ValueError, match="disagree"):
+        ops.ssd_intra(x, dt[:, :1].contiguous(), a_cs, bm, cm)
+    big = _ssd_inputs((1, 1, 129, 1, 4, 4), torch.float32)
+    with pytest.raises(ValueError, match="Lc <= 128"):
+        ops.ssd_intra(*big)

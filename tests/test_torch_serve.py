@@ -198,10 +198,11 @@ def test_cli_runs_on_cpu_and_needs_a_card_otherwise(capsys):
 def test_other_families_and_inputs_raise():
     from repro_torch.configs.base import ArchConfig
 
-    ssm = ArchConfig(name="tiny-ssm", family="ssm", n_layers=1, d_model=8,
-                     n_heads=0, n_kv_heads=0, d_ff=0, vocab_size=16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        build_model(ssm)
+    hybrid = ArchConfig(name="tiny-hybrid", family="hybrid", n_layers=1,
+                        d_model=8, n_heads=2, n_kv_heads=2, d_ff=16,
+                        vocab_size=16, ssm_state=4, shared_attn_every=1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        build_model(hybrid)
     vlm = dataclasses.replace(get_config("fedlm-100m"), family="vlm")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         input_specs.make_batch(vlm, 1, 4)
