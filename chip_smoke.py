@@ -9,6 +9,8 @@ of the JAX package. Phases, one JSON line each:
 1. device    — the card, its power limit, the software versions;
 2. build     — every CUDA source of ``csrc/`` compiled with nvcc (one
                process per source, all started together) and linked;
+               ``-Xptxas -v``'s registers, spills and static shared memory
+               per kernel;
 3. kernels   — each kernel form against its plain PyTorch version, at
                tolerance 0, at the main paths' shapes (the largest stacked
                fedlm-100m leaf ``[4, 14, 640, 2560]``, the arena
@@ -30,10 +32,15 @@ of the JAX package. Phases, one JSON line each:
                rows with no allowed key (chunked and sliding, T < S); the
                SSD intra-chunk term within 1e-4 of the output's scale (1e-2
                in bfloat16) at mamba2-130m's prefill ``[4, 16, 128, 24,
-               64]``, N 128, at the reference's sweep shapes in float32 and
-               bfloat16, a ragged chunk of 37, a_cs near -1e3, P 128 and
-               uneven head groups; kernel, plain and bound times from CUDA
-               events, and the library yardsticks: torch.matmul with the
+               64]``, N 128 (also in bfloat16), at the reference's sweep
+               shapes in float32 and bfloat16, a ragged chunk of 37, Lc, P
+               and N all off the tensor-core tiles (45, 20, 12), a_cs near
+               -1e3, P 128 and uneven head groups, and equal to its own
+               repeat bit for bit; kernel, plain and bound times from CUDA
+               events, the kernel's and the library call's device time
+               (``device_ms``: the same 20 calls replayed from one CUDA
+               graph, without the host's dispatch), and the library
+               yardsticks: torch.matmul with the
                dense weighted matrix for the gossip reduce,
                torch.linalg.vector_norm (norms only) for the sketch,
                scaled_dot_product_attention (enable_gqa) for flash
@@ -85,7 +92,8 @@ of the JAX package. Phases, one JSON line each:
                counts reset just before and read just after: exactly one
                flash_attention per layer on S1 and S2 (14, 28), one
                ssd_intra per layer on S3 (24), and no other kernel. Prefill
-               ms, decode ms per token, tokens/s and peak GB; the logits of
+               ms (the run's first, then three more into fresh caches),
+               decode ms per token, tokens/s and peak GB; the logits of
                the run (teacher-forced on its tokens) within 1e-4 of their
                scale of the same run with the kernel's plain version; the
                prefill of all but the last prompt token plus one decode
@@ -189,6 +197,33 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed, CUDA events: the calls' kernels back to back,
+    without the host's dispatch between them (no profiler: a profiler
+    session leaves the host slower for the rest of the process)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / iters
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     peak = {torch.float64: FP64_FLOPS, torch.bfloat16: BF16_FLOPS}.get(
         dtype, FP32_FLOPS)
@@ -202,13 +237,29 @@ def phase_build():
     from repro_torch.kernels import library as L
 
     path, seconds, log = L.build(verbose=True)
-    regs = [ln.split("Used", 1)[1].strip() for ln in log.splitlines()
-            if "Used" in ln and "registers" in ln]
     emit({"phase": "build",
           "sources": [str(f.relative_to(ROOT)) for f in L.SOURCES],
           "library": str(Path(path).relative_to(ROOT)),
           "seconds": seconds, "flags": list(L.NVCC_FLAGS),
-          "ptxas_registers": regs})
+          "ptxas": _ptxas(log)})
+
+
+def _ptxas(log):
+    """Per kernel of ``-Xptxas -v``'s build log: its source, its (mangled)
+    name, its stack frame and spills, and its registers, barriers and
+    static shared memory."""
+    out, src, fn, frame = [], None, None, None
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+        elif "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "bytes stack frame" in ln:
+            frame = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append({"source": src, "kernel": fn, "frame": frame,
+                        "usage": ln.split("Used", 1)[1].strip()})
+    return out
 
 
 def _operands(shape, dtype, n, seed):
@@ -511,10 +562,11 @@ def _cases(form):
         bf16, d = torch.bfloat16, _case_ssd
         sweep = [(1, 1, 8, 1, 4, 4), (2, 3, 16, 2, 8, 8),
                  (1, 2, 128, 3, 64, 32)]
-        return ([("main", SSD_MAMBA2, f32, d)]
+        return ([("main", SSD_MAMBA2, f32, d), ("main", SSD_MAMBA2, bf16, d)]
                 + [(f"sweep_{i}", sh, dt, d) for i, sh in enumerate(sweep)
                    for dt in (f32, bf16)]
                 + [("ragged_37", (2, 3, 37, 5, 24, 40), f32, d),
+                   ("off_tiles", (2, 3, 45, 3, 20, 12), f32, d),
                    ("decay_1e3", (1, 2, 128, 2, 16, 16), f32,
                     lambda sh, dt, i: d(sh, dt, i, decay=11.0)),
                    ("p_128", (1, 2, 128, 3, 128, 64), f32, d),
@@ -613,6 +665,9 @@ def _cases(form):
 
 #: forms with a reduction across blocks, held to bitwise equal repeats.
 REPEATED = ("telemetry_sketch",)
+#: forms held to a tolerance whose repeat must still equal the first run
+#: bit for bit (the SSD term: no race in its cp.async pipeline).
+REPEATS_EXACTLY = ("ssd_intra",)
 
 
 def _excess(got, want, tol, chunk=1 << 27) -> float:
@@ -649,6 +704,9 @@ def phase_kernels():
             if form in REPEATED:
                 err = max(err, _max_err(kern(), got))
                 excess = err
+            if form in REPEATS_EXACTLY:
+                check(_bitwise(kern(), got), f"{form} {label} {shape} "
+                                             f"{dtype}: a repeat differs")
             del got, want
             torch.cuda.synchronize()
             errs.append({"case": label, "shape": list(shape),
@@ -666,14 +724,17 @@ def phase_kernels():
                 p1, k1, k2, p2 = (time_ms(fn, **how)
                                   for fn in (plain, kern, kern, plain))
                 b_ms, b_by = bound(nbytes, flops, dtype)
-                lib_ms = None
+                lib_ms = lib_dev = None
                 if library is not None:
                     lib_ms = (time_ms(library, **how)
                               + time_ms(library, **how)) / 2
+                    lib_dev = device_ms(library, **how)
                 timing[label] = {"shape": list(shape), "ms": (k1 + k2) / 2,
+                                 "device_ms": device_ms(kern, **how),
                                  "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
                                  "bound_by": b_by, "bytes": nbytes,
-                                 "flops": flops, "library_ms": lib_ms}
+                                 "flops": flops, "library_ms": lib_ms,
+                                 "library_device_ms": lib_dev}
             del kern, plain, library
             torch.cuda.empty_cache()
         results[form] = {**timing.pop("main"), "also_timed": timing,
@@ -1257,6 +1318,26 @@ def _teacher_forced(model, params, prompt, tokens):
     return torch.stack(out)
 
 
+def _prefill_ms(model, params, prompt, reps=3):
+    """CUDA-event times of ``reps`` more prefills of ``prompt``, each into
+    fresh caches: the steady state, where the run's first prefill also
+    holds one-time costs."""
+    B, S = prompt["tokens"].shape
+    times = []
+    for _ in range(reps):
+        caches = model.init_caches(B, S + 1, device="cuda")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            start.record()
+            model.prefill(params, prompt, caches)
+            end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        del caches
+    return times
+
+
 def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
@@ -1317,6 +1398,7 @@ def _serve_path(name, spec):
     spans = {k: [s.elapsed_time(e) for key, s, e in timeline.open if key == k]
              for k in ("prefill", "decode")}
     del model.prefill, model.decode_step
+    prefill_repeat = _prefill_ms(model, params, prompt)
     kernel = spec["kernel"]
     check(launches[kernel] == cfg.n_layers,
           f"{name}: {kernel} launched {launches[kernel]} times in one "
@@ -1329,6 +1411,7 @@ def _serve_path(name, spec):
            "reduced": False, "dtype": cfg.dtype, "n_params": n_params,
            "batch": B, "prompt_len": spec["prompt"], "gen_len": n,
            "prefill_ms": spans["prefill"][0],
+           "prefill_ms_repeat": prefill_repeat,
            "decode_ms_per_token": sum(spans["decode"]) / n,
            "decode_ms_range": [min(spans["decode"]), max(spans["decode"])],
            "decode_tokens_per_s": B * n / decode_s,
@@ -1451,8 +1534,10 @@ def main() -> int:
             "name": form, "route": "cuda", "source": SRC + src,
             "replaces": replaces, "launches": paths[OWNER[form]][form],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "device_ms": k["device_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "library_device_ms": k["library_device_ms"],
             "launches_by_path": {p: n[form] for p, n in paths.items()}})
     check(all(s["launches"] > 0 for s in summary),
           f"a kernel form has no launch on its path: {summary}")

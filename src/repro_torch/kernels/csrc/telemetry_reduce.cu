@@ -29,12 +29,20 @@
 //     W = 16 / sizeof(T) lanes and 256 threads, thread t of block b owns
 //     the lanes p = k*S + (b*256 + t)*W + l, S = nblk*256*W, and adds
 //     their squares in order of k into W accumulators, one per lane l
-//     (elements past d add nothing: zero padding in the plain version). The
-//     W lanes then reduce by a halving tree, the 256 threads by a halving
-//     tree in shared memory, and the block writes one partial [n, nblk].
+//     (elements past d add nothing: zero padding in the plain version).
+//     The loop over k issues kUnroll streaming 16-byte loads (ld.global.cs:
+//     the store is read once) before it adds the first of them, so a
+//     thread keeps kUnroll loads in flight; the adds still run in order of
+//     k. The W lanes then reduce by a halving tree, the 256 threads by a
+//     halving tree in shared memory, and the block writes one partial
+//     [n, nblk]. Block (0, 0) also zeroes the histogram.
 //  2. Pass 2 (one block per client) reduces the nblk partials by a halving
 //     tree, writes sq, takes sqrt and log10 in x's type and bins the norm
 //     with an integer atomic add (exact: the counts are integers).
+//
+// Two launches a call and no memset. Folding pass 2 into pass 1 behind a
+// last-block ticket would need a counter that is zero before every call:
+// a memset again, or state kept in the library between calls.
 //
 // The lane layout does not depend on how elements are loaded: 16-byte
 // vector loads run where x is 16-byte aligned and d is a multiple of W,
@@ -45,44 +53,79 @@
 
 namespace {
 
-using repro::Vec;
-
 constexpr int kMaxBlocks = 1024;  // nblk limit (pass 2's shared array)
+constexpr int kUnroll = 8;        // pass 1's loads in flight per thread
 
 __device__ __forceinline__ float sqrt_of(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_of(double x) { return ::sqrt(x); }
 __device__ __forceinline__ float log10_of(float x) { return log10f(x); }
 __device__ __forceinline__ double log10_of(double x) { return ::log10(x); }
 
+__device__ __forceinline__ void load_cs(const float* p, float (&v)[4]) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load_cs(const double* p, double (&v)[2]) {
+  const double2 q = __ldcs(reinterpret_cast<const double2*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+}
+
+// The W lanes from p of a row of d values: one streaming 16-byte load, or
+// W scalar loads with zeros past d.
+template <typename T, int W, bool kVec>
+__device__ __forceinline__ void load_lanes(const T* row, long long p,
+                                           long long d, T (&v)[W]) {
+  if (kVec) {
+    load_cs(row + p, v);
+  } else {
+#pragma unroll
+    for (int l = 0; l < W; ++l) v[l] = p + l < d ? __ldcs(row + p + l) : T(0);
+  }
+}
+
 template <typename T, int W, bool kVec>
 __global__ void sketch_partials_kernel(const T* __restrict__ x,
-                                       T* __restrict__ part, long long n,
-                                       long long d, int nblk) {
+                                       T* __restrict__ part,
+                                       int* __restrict__ hist, long long n,
+                                       long long d, int nblk, int bins) {
   __shared__ T s[repro::kThreads];
   const long long stride =
       static_cast<long long>(nblk) * repro::kThreads * W;
   const long long first =
       (static_cast<long long>(blockIdx.x) * repro::kThreads + threadIdx.x) *
       W;
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    for (int b = threadIdx.x; b < bins; b += repro::kThreads) hist[b] = 0;
+  }
+  // the k's of this thread: first + k*stride < d
+  const long long steps = first < d ? (d - 1 - first) / stride + 1 : 0;
   for (long long i = blockIdx.y; i < n; i += gridDim.y) {
     const T* row = x + i * d;
     T acc[W];
 #pragma unroll
     for (int l = 0; l < W; ++l) acc[l] = T(0);
-    for (long long p = first; p < d; p += stride) {
-      if (kVec) {
-        const Vec<T, W> v = repro::load<T, W>(row, p);
+    long long k = 0, p = first;
+    for (; k + kUnroll <= steps; k += kUnroll, p += kUnroll * stride) {
+      T v[kUnroll][W];
 #pragma unroll
-        for (int l = 0; l < W; ++l) acc[l] = acc[l] + v.v[l] * v.v[l];
-      } else {
-#pragma unroll
-        for (int l = 0; l < W; ++l) {
-          if (p + l < d) {
-            const T e = row[p + l];
-            acc[l] = acc[l] + e * e;
-          }
-        }
+      for (int u = 0; u < kUnroll; ++u) {
+        load_lanes<T, W, kVec>(row, p + u * stride, d, v[u]);
       }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int l = 0; l < W; ++l) acc[l] = acc[l] + v[u][l] * v[u][l];
+      }
+    }
+    for (; k < steps; ++k, p += stride) {
+      T v[W];
+      load_lanes<T, W, kVec>(row, p, d, v);
+#pragma unroll
+      for (int l = 0; l < W; ++l) acc[l] = acc[l] + v[l] * v[l];
     }
 #pragma unroll
     for (int h = W / 2; h > 0; h /= 2) {
@@ -142,19 +185,19 @@ int launch_sketch(const T* x, T* part, T* sq, int* hist, long long n,
   if (nblk < 1 || nblk > kMaxBlocks || (nblk & (nblk - 1)) != 0 || bins < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaMemsetAsync(hist, 0, sizeof(int) * bins, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n == 0) return 0;
+  if (n == 0) {  // no client: only the zeroed histogram
+    return static_cast<int>(cudaMemsetAsync(hist, 0, sizeof(int) * bins, s));
+  }
   const unsigned ny = static_cast<unsigned>(n < 65535 ? n : 65535);
   const dim3 grid(static_cast<unsigned>(nblk), ny);
   if (vec) {
     sketch_partials_kernel<T, W, true><<<grid, repro::kThreads, 0, s>>>(
-        x, part, n, d, nblk);
+        x, part, hist, n, d, nblk, bins);
   } else {
     sketch_partials_kernel<T, W, false><<<grid, repro::kThreads, 0, s>>>(
-        x, part, n, d, nblk);
+        x, part, hist, n, d, nblk, bins);
   }
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned nx = static_cast<unsigned>(n < 65535 ? n : 65535);
   sketch_finish_kernel<T><<<nx, repro::kThreads, 0, s>>>(
@@ -166,9 +209,9 @@ int launch_sketch(const T* x, T* part, T* sq, int* hist, long long n,
 
 // Each entry point launches on `stream` (PyTorch's current stream), does
 // not synchronise, and returns the first CUDA error of its launches (0 on
-// success). part is [n, nblk] scratch; hist is zeroed here. nblk must be a
-// power of two <= 1024; vec requires a 16-byte aligned x and d a multiple
-// of the vector width.
+// success). part is [n, nblk] scratch; hist is zeroed here (by pass 1).
+// nblk must be a power of two <= 1024; vec requires a 16-byte aligned x and
+// d a multiple of the vector width.
 extern "C" {
 
 int telemetry_sketch_f32(const float* x, float* part, float* sq, int* hist,

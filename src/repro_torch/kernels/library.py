@@ -34,8 +34,9 @@ SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 #: --fmad=false: products and sums round once each, like the plain PyTorch
 #: expressions, so the card checks can hold a tolerance of 0. The flash
-#: attention and SSD kernels, held to a tolerance instead, write their
-#: inner products with explicit __fmaf_rn, which the flag leaves alone.
+#: attention kernel, held to a tolerance instead, writes its inner products
+#: with explicit __fmaf_rn, which the flag leaves alone; the SSD kernel
+#: sums its products on the tensor cores (3xTF32).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 

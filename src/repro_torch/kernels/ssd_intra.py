@@ -2,14 +2,22 @@
 ``src/repro/kernels/ssd_intra.py``: ``ssd_intra``).
 
 The chunked SSD (``models/mamba2.py:ssd_chunked``) computes its quadratic
-within-chunk term through the kernel of ``csrc/ssd_intra.cu``: one block
+within-chunk term through the kernel of ``csrc/ssd_intra.cu``, bound by
+the bytes it moves (every operand read once, y written once). One block
 per (head group, chunk, batch) forms ``C B^T`` once for all heads of the
-group in shared memory, then per head the causally masked, decayed weights
-``W`` and ``W @ x``, summing in float32. ``kernels/library.py`` builds and
-loads it and counts its launches under ``"ssd_intra"``. Its plain version
-is ``kernels/ref.py:ssd_intra``; the two agree within float32 rounding
-(the sums run in another order), not bit for bit. The kernel has no
-backward: under autograd it raises.
+group, only its causal tiles, into shared memory; then two sets of eight
+warps each work through every other head, one warp per 16-row tile,
+forming the causally masked, decayed weights ``W`` fragment by fragment
+and ``W @ x``, while the set's next head's x loads with ``cp.async``.
+Both products run on the tensor cores (``mma.sync`` m16n8k8 in TF32,
+float32 accumulators) as 3xTF32: each float32 operand splits into a TF32
+high part and a remainder, and three products keep the sums within
+float32 rounding of the plain version; bfloat16 operands are exact in TF32
+and skip their remainder. ``kernels/library.py`` builds and loads it and
+counts its launches under ``"ssd_intra"``. Its plain version is
+``kernels/ref.py:ssd_intra``; the two agree within float32 rounding (the
+sums run in another order), not bit for bit. The kernel has no backward:
+under autograd it raises.
 """
 
 from __future__ import annotations

@@ -24,10 +24,11 @@ like the plain PyTorch expression and must agree bit for bit; flash
 attention sums its dot products in another order than the plain version's
 einsums, and is held to the reference kernel's own tolerance against
 naive attention (``tests/test_kernels.py``): 2e-5 in float32, 5e-2 in
-bfloat16; the SSD kernel widens to float32 and rounds once as its plain
-version does, and is held at the reference's sweep shapes to 1e-4 in
-float32 and 1e-2 (a few bfloat16 ulps) in bfloat16, elsewhere to 1e-4 of
-the output's scale. These tests
+bfloat16; the SSD kernel sums 3xTF32 tensor-core products in float32 and
+rounds once as its plain version does, and is held at the reference's
+sweep shapes to 1e-4 in float32 and 1e-2 (a few bfloat16 ulps) in
+bfloat16, elsewhere to 1e-4 of the output's scale (1e-2 in bfloat16),
+and to its own repeat bit for bit. These tests
 import no JAX, so they also run where JAX is not installed
 (``pytest --noconftest -m cuda``).
 """
@@ -686,17 +687,22 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take():
 #: (B, Nc, Lc, H, P, N): the reference's sweep shapes
 #: (``tests/test_kernels.py``).
 SSD_SWEEP = [(1, 1, 8, 1, 4, 4), (2, 3, 16, 2, 8, 8), (1, 2, 128, 3, 64, 32)]
-#: label -> (shape, decay): mamba2-130m's prefill at batch 4 and 2048
-#: tokens; a ragged chunk with P and N off the 16-wide tiles; a_cs falling
-#: to ~-1e3 over a chunk; P = 128 (the widest); 7 heads in two uneven
-#: groups (100 chunks on the card's SMs).
+#: label -> (shape, decay, dtype): mamba2-130m's prefill at batch 4 and
+#: 2048 tokens, in float32 and bfloat16; a ragged chunk with P and N off
+#: the 16-wide tiles; Lc, P and N all off the tensor-core tiles (16 rows,
+#: 8 columns, 8 deep); a_cs falling to ~-1e3 over a chunk; P = 128 (the
+#: widest); 7 heads in two uneven groups (100 chunks on the card's SMs).
 SSD_CASES = {
-    "main": ((4, 16, 128, 24, 64, 128), 1.0),
-    "ragged_37": ((2, 3, 37, 5, 24, 40), 1.0),
-    "decay_1e3": ((1, 2, 128, 2, 16, 16), 11.0),
-    "p_128": ((1, 2, 128, 3, 128, 64), 1.0),
-    "uneven_head_groups": ((4, 25, 16, 7, 8, 8), 1.0),
+    "main": ((4, 16, 128, 24, 64, 128), 1.0, torch.float32),
+    "main_bf16": ((4, 16, 128, 24, 64, 128), 1.0, torch.bfloat16),
+    "ragged_37": ((2, 3, 37, 5, 24, 40), 1.0, torch.float32),
+    "off_tiles": ((2, 3, 45, 3, 20, 12), 1.0, torch.float32),
+    "decay_1e3": ((1, 2, 128, 2, 16, 16), 11.0, torch.float32),
+    "p_128": ((1, 2, 128, 3, 128, 64), 1.0, torch.float32),
+    "uneven_head_groups": ((4, 25, 16, 7, 8, 8), 1.0, torch.float32),
 }
+#: the gate of a case: its error as a share of the output's scale
+SSD_SCALE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 def _ssd_inputs(shape, dtype, seed=0, decay=1.0):
@@ -736,14 +742,35 @@ def test_cuda_ssd_intra_matches_plain_at_the_reference_shapes(shape, dtype):
 @pytest.mark.parametrize("case", list(SSD_CASES))
 def test_cuda_ssd_intra_matches_plain_within_its_scale(case):
     _need_cuda()
-    shape, decay = SSD_CASES[case]
-    args = _ssd_inputs(shape, torch.float32, seed=4, decay=decay)
+    shape, decay, dtype = SSD_CASES[case]
+    args = _ssd_inputs(shape, dtype, seed=4, decay=decay)
     got = ops.ssd_intra(*args)
     want = ops.ssd_intra(*args, impl="ref")
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    got, want = got.float(), want.float()
     scale = float(want.abs().max())
-    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert float((got - want).abs().max()) <= SSD_SCALE_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["main", "main_bf16", "off_tiles",
+                                  "uneven_head_groups"])
+def test_cuda_ssd_intra_repeats_bit_for_bit(case):
+    """Two launches on the same inputs give the same bits: the block's sums
+    run in a fixed order, and no warp reads a shared buffer that the
+    cp.async pipeline is still filling."""
+    _need_cuda()
+    from repro_torch.kernels import library as L
+
+    shape, decay, dtype = SSD_CASES[case]
+    args = _ssd_inputs(shape, dtype, seed=6, decay=decay)
+    before = L.LAUNCHES["ssd_intra"]
+    first = ops.ssd_intra(*args)
+    again = ops.ssd_intra(*args)
+    torch.cuda.synchronize()
+    assert L.LAUNCHES["ssd_intra"] == before + 2
+    assert torch.equal(first, again)
 
 
 @pytest.mark.cuda

@@ -13,6 +13,9 @@ package on the CPU, on the same numpy inputs and parameters.
   version against the reference's Pallas kernel in interpret mode, within
   1e-4 in float32 and 1e-1 in bfloat16 (the reference's bounds), plus a
   ragged chunk of 37 and a chunk whose cumulative decay reaches ~-1e3.
+* The CUDA kernel's numerics, emulated: 3xTF32 tensor-core products stay
+  within 1e-5 of the output's scale of the plain version; one TF32 pass
+  does not stay within the card's 1e-4.
 * The helpers the family adds: ``softplus`` (``jax.nn.softplus`` is
   ``logaddexp(x, 0)`` at every x), the depthwise causal conv and its
   one-token step, ``layer_norm`` / ``apply_norm`` / ``init_norm``.
@@ -296,6 +299,59 @@ def test_ssd_intra_matches_mamba_chunked_path():
                              Cm[:, :Lc])
     _close(y_intra[:, :Lc], y_full[:, :Lc])
     _close(y_intra[:, :Lc], y_first)
+
+
+def _tf32(t, nearest=True):
+    """float32 to TF32 (10 mantissa bits): to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds (add half a unit of the 13 dropped
+    bits to the magnitude, then clear them), or truncated, as the tensor
+    cores read a float32 operand."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000 if nearest else bits) & -0x2000).view(
+        torch.float32)
+
+
+def _ssd_intra_on_tf32(x, dt, a_cs, Bm, Cm, passes):
+    """The CUDA kernel's arithmetic in plain torch: ``C B^T`` and ``W @ x``
+    as float32 sums of products of TF32 values (exact in float32, as on the
+    tensor cores). ``passes=3`` is 3xTF32 (``a_lo b_hi + a_hi b_lo + a_hi
+    b_hi``, ``hi = tf32(v)`` to nearest, ``lo = v - hi`` as the tensor
+    cores read it, truncated); ``passes=1`` one TF32 product
+    ``a_hi b_hi``."""
+    def product(eq, a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        out = torch.einsum(eq, ah, bh)
+        if passes == 3:
+            out = (torch.einsum(eq, _tf32(a - ah, nearest=False), bh)
+                   + torch.einsum(eq, ah, _tf32(b - bh, nearest=False))
+                   + out)
+        return out
+
+    cb = product("bcin,bcjn->bcij", Cm, Bm)
+    lc = x.shape[2]
+    causal = torch.tril(torch.ones((lc, lc), dtype=torch.bool))[
+        None, None, :, :, None]
+    seg = torch.where(causal, a_cs[:, :, :, None] - a_cs[:, :, None], 0.0)
+    w = torch.where(causal, cb[..., None] * torch.exp(seg)
+                    * dt[:, :, None], 0.0)
+    return product("bcijh,bcjhp->bcihp", w, x)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 128, 4, 64, 128),
+                                   (2, 3, 45, 3, 20, 12)])
+def test_ssd_intra_3xtf32_emulation_within_the_float32_gate(shape):
+    """Why the CUDA kernel runs both products as 3xTF32 on the tensor
+    cores: emulated here, it stays within 1e-5 of the output's scale of the
+    plain float32 version (the card's gate is 1e-4), where one TF32 pass
+    misses that gate (~5e-4). mamba2-130m's head dim and state (P 64, N
+    128) and Lc, P, N off the 16 / 8 / 8 tiles."""
+    args = _t(*_intra_inputs(shape, seed=7))
+    want = ref.ssd_intra(*args)
+    scale = float(want.abs().max())
+    err3 = float((_ssd_intra_on_tf32(*args, passes=3) - want).abs().max())
+    err1 = float((_ssd_intra_on_tf32(*args, passes=1) - want).abs().max())
+    assert err3 <= 1e-5 * scale
+    assert err1 > 1e-4 * scale
 
 
 def test_ssd_intra_kernel_route_refuses_cpu_tensors_and_autograd():
