@@ -18,8 +18,8 @@
 //
 // Design: both products run on the tensor cores, mma.sync m16n8k8 in TF32
 // with float32 accumulators, as 3xTF32: a float32 operand v splits into
-// hi = tf32(v) (cvt.rna: an mma fed raw float32 bits would truncate them)
-// and lo = v - hi, which the mma reads to its 10 top mantissa bits, and
+// hi = tf32(v) (to nearest: an mma fed raw float32 bits would truncate
+// them) and lo = v - hi, which the mma reads to its 10 top mantissa bits, and
 // a b = a_lo b_hi + a_hi b_lo + a_hi b_hi keeps the sums within float32
 // rounding of the plain version (one TF32 product is ~5e-4 of the output's
 // scale, beyond the checks' 1e-4). bfloat16 operands are exact in TF32
@@ -66,7 +66,16 @@
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
+
+using repro::cp_async;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::mma_if;
+using repro::sm_count;
+using repro::split;
 
 constexpr int kSetThreads = 256;  // a set: 8 warps, one head at a time
 constexpr int kMaxLc = 128;       // 8 row tiles of 16
@@ -107,54 +116,6 @@ __host__ __device__ constexpr int row_stride(int cols, int size) {
   return ((cols * size + 47) / 64 * 64 + 16) / size;
 }
 
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo, both TF32 values; for a bfloat16 operand (exact) lo is 0.
-template <bool kExact>
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  if (kExact) {
-    hi = __float_as_uint(v);
-    lo = 0u;
-  } else {
-    hi = tf32(v);
-    lo = __float_as_uint(v - __uint_as_float(hi));
-  }
-}
-
-// d += a b over one m16n8k8 TF32 tile (float32 accumulators) where `on`
-// (warp-uniform): a predicated instruction, not a branch, so that a loop
-// over tiles stays one block of independent products that the compiler can
-// interleave (a branch per tile would leave a chain of three dependent
-// products per block).
-__device__ __forceinline__ void mma_if(bool on, float (&d)[4],
-                                       const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %10, 0;\n\t"
-      "@p mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n\t}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "r"(static_cast<int>(on)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool fill) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(src), "r"(fill ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // Rows [0, rows_pad) x columns [0, cols_pad) of a row-major T matrix (row
 // stride ld) into shared memory (row stride sld); entries past (rows, cols)
 // are zero. kVec: 16-byte cp.async (cols and src 16-byte granular), left in
@@ -171,7 +132,7 @@ __device__ __forceinline__ void load_tile(T* dst, int sld, const T* src,
     for (int c = id; c < rows_pad * cpr; c += count) {
       const int r = c / cpr, col = (c - r * cpr) * E;
       const bool in = r < rows && col < cols;
-      cp_async16(dst + r * sld + col, in ? src + r * ld + col : src, in);
+      cp_async<16>(dst + r * sld + col, in ? src + r * ld + col : src, in);
     }
   } else {
     for (int c = id; c < rows_pad * cols_pad; c += count) {
@@ -488,20 +449,6 @@ __global__ void __launch_bounds__(kSets * kSetThreads, 1)
     }
     bar_sync(1 + set, kSetThreads);  // the next head is in, this one done
   }
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        sms <= 0) {
-      sms = 132;
-    }
-  }
-  return sms;
 }
 
 template <typename T, int NT, bool kVec, int kSets>

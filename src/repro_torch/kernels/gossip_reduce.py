@@ -6,7 +6,11 @@ The sparse gossip lowering (``core/topology.py``: ``Mixing`` with
 The reference gathers them into a ``[n*S, D]`` contribution tensor and
 sums its slots in the TPU kernel; the CUDA kernel of
 ``csrc/gossip_reduce.cu`` gathers, weights, sums and divides in one pass
-and never writes that tensor. ``kernels/library.py`` builds and loads it
+and never writes that tensor. Where all ``R`` source rows of a column tile
+fit in shared memory (the main path: ``R = n = 8``) a block owns a column
+tile and reads each source element once (the column-owning route, see
+:func:`route`); larger tables take the node-owning route, which reads the
+``S`` rows of each node. ``kernels/library.py`` builds and loads it
 and counts its launches under ``"gossip_reduce"``. The index and weight
 tables are inputs, so the kernel is a pure function of its operands,
 comparable bit for bit with ``kernels/ref.py:gossip_reduce``.
@@ -18,7 +22,23 @@ import torch
 
 from repro_torch.kernels import library as L
 
-__all__ = ["gossip_reduce"]
+__all__ = ["gossip_reduce", "route"]
+
+
+def _vec(src: torch.Tensor) -> bool:
+    """Whether the kernel moves 16-byte vectors (the output, a fresh
+    allocation, is always aligned)."""
+    return L.aligned(src) and src.shape[1] % (16 // src.element_size()) == 0
+
+
+def route(src: torch.Tensor, idx: torch.Tensor) -> str:
+    """``"column"`` or ``"node"``: the route the kernel takes for ``src``
+    ``[R, D]`` on the card and the table ``idx`` ``[n, S]`` (the one
+    ``launch_gossip_reduce`` chooses by shape)."""
+    n, slots = idx.shape
+    most = L.library().gossip_reduce_column_rows(
+        n, slots, src.element_size(), int(_vec(src)))
+    return "column" if src.shape[0] <= most else "node"
 
 
 def gossip_reduce(src: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
@@ -54,8 +74,7 @@ def gossip_reduce(src: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
     # on the card here, without a read-back to the host.
     torch._assert_async(((idx >= 0) & (idx < src.shape[0])).all(),
                         "gossip_reduce: idx outside the rows of src")
-    vec = L.aligned(src, out) and d % (16 // src.element_size()) == 0
     L.launch("gossip_reduce", sfx, src, src.data_ptr(), idx.data_ptr(),
              wgt.data_ptr(), None if denom is None else denom.data_ptr(),
-             out.data_ptr(), n, slots, d, int(vec))
+             out.data_ptr(), n, slots, src.shape[0], d, int(_vec(src)))
     return out

@@ -34,9 +34,8 @@ SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 #: --fmad=false: products and sums round once each, like the plain PyTorch
 #: expressions, so the card checks can hold a tolerance of 0. The flash
-#: attention kernel, held to a tolerance instead, writes its inner products
-#: with explicit __fmaf_rn, which the flag leaves alone; the SSD kernel
-#: sums its products on the tensor cores (3xTF32).
+#: attention and SSD kernels, held to tolerances instead, sum their
+#: products on the tensor cores (3xTF32 in float32).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -58,7 +57,7 @@ _SIGNATURES = {
                                          _i64, _i32, _ptr]),
     "stochastic_quantize": [_ptr] * 4 + [_i32, _i64, _i64, _i64, _i32, _i32,
                                          _ptr],
-    "gossip_reduce": [_ptr] * 5 + [_i64, _i64, _i64, _i32, _ptr],
+    "gossip_reduce": [_ptr] * 5 + [_i64] * 4 + [_i32, _ptr],
     "telemetry_sketch": [_ptr] * 4 + [_i64, _i64, _i32, _i32, "T", "T", _i32,
                                       _ptr],
     "flash_attention": [_ptr] * 4 + [_i64] * 3 + [_i32] * 6 + [_ptr],
@@ -70,6 +69,8 @@ _BUILT_FOR = {"flash_attention": ("f32", "bf16"),
 #: counted forms that share another form's C entry point.
 _ENTRY = {"fedcet_comm4": "fedcet_comm",
           "stochastic_quantize_rows": "stochastic_quantize"}
+#: C functions without a float type: name -> (argtypes, restype).
+_QUERIES = {"gossip_reduce_column_rows": ([_i64, _i64, _i32, _i32], _i64)}
 SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 _CTYPE = {"f32": ctypes.c_float, "f64": ctypes.c_double}
 
@@ -149,6 +150,9 @@ def library():
                     fn.argtypes = [_CTYPE[sfx] if a == "T" else a
                                    for a in sig]
                     fn.restype = _i32
+            for name, (argtypes, restype) in _QUERIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
             _LIB = lib
         return _LIB
 

@@ -169,8 +169,9 @@ def _flash(q, k, v, kind, window, chunk):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "attention through the flash-attention kernel has no backward "
-            "yet (ROADMAP.md Queue 2 item 9, the flash-attention backward "
-            "kernel): train with use_pallas_attention=False")
+            "yet (ROADMAP.md, Beyond the reference item 1, the "
+            "flash-attention backward kernel): train with "
+            "use_pallas_attention=False")
     return kops.flash_attention(q, k, v, kind=_mask_kind(kind),
                                 window=window, chunk=chunk)
 

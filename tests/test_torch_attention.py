@@ -18,6 +18,8 @@ the JAX package on the CPU, on the same numpy inputs and parameters.
   ``tests/test_attention.py``, on the port alone, at its 2e-4.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -125,6 +127,62 @@ def test_plain_flash_bf16_matches_the_pallas_kernel():
                                rtol=5e-2, atol=5e-2)
 
 
+def _tf32(t, nearest=True):
+    """float32 to TF32 (10 mantissa bits): to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds (add half a unit of the 13 dropped
+    bits to the magnitude, then clear them), or truncated, as the tensor
+    cores read a float32 operand."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000 if nearest else bits) & -0x2000).view(
+        torch.float32)
+
+
+def _flash_on_tf32(q, k, v, kind, window, passes):
+    """The CUDA kernel's float32 arithmetic in plain torch: ``q k^T`` and
+    ``p v`` as float32 sums of products of TF32 values (exact in float32,
+    as on the tensor cores), the softmax in float32. ``passes=3`` is
+    3xTF32 (``a_lo b_hi + a_hi b_lo + a_hi b_hi``, ``hi = tf32(v)`` to
+    nearest, ``lo = v - hi`` as the tensor cores read it, truncated);
+    ``passes=1`` one TF32 product ``a_hi b_hi``."""
+    def product(eq, a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        out = torch.einsum(eq, ah, bh)
+        if passes == 3:
+            out = (torch.einsum(eq, _tf32(a - ah, nearest=False), bh)
+                   + torch.einsum(eq, ah, _tf32(b - bh, nearest=False))
+                   + out)
+        return out
+
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    s = product("bqhgd,bkhd->bqhgk", qg, k) / math.sqrt(D)
+    qp, kp = torch.arange(S)[:, None], torch.arange(T)[None, :]
+    ok = kp <= qp
+    if kind == "sliding":
+        ok = ok & (kp > qp - window)
+    s = torch.where(ok[None, :, None, None, :], s, ref.NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = product("bqhgk,bkhd->bqhgd", p, v) / p.sum(dim=-1)[..., None]
+    return out.reshape(B, S, Hq, D)
+
+
+@pytest.mark.parametrize("kind", ["causal", "sliding"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_3xtf32_emulation_within_the_float32_gate(kind, D):
+    """Why the CUDA kernel runs both products as 3xTF32 on the tensor cores
+    in float32: emulated here at 1024 tokens, it stays within the card's
+    float32 gate (rtol = atol = 2e-5) of the plain float32 version, where
+    one TF32 pass misses it (~1e-3). fedlm-100m's and qwen3-1.7b's head
+    dims, G = 2."""
+    q, k, v = _t(*_qkv(1, 1024, 1024, 1, 2, D, seed=D))
+    want = ref.flash_attention(q, k, v, kind=kind, window=300).numpy()
+    three = _flash_on_tf32(q, k, v, kind, 300, passes=3).numpy()
+    one = _flash_on_tf32(q, k, v, kind, 300, passes=1).numpy()
+    np.testing.assert_allclose(three, want, **TOL)
+    assert not np.allclose(one, want, **TOL)
+
+
 # ------------------------------------------------------ blockwise, attention
 @pytest.mark.parametrize("kind", ["causal", "sliding", "chunked"])
 def test_attend_blockwise_matches_jax(kind):
@@ -176,7 +234,8 @@ def test_use_pallas_refuses_autograd():
     _, tp = _params(jax, JA, d, Hq, Hkv, D, 0)
     x = torch.from_numpy(_x(B, S, d, 1)).requires_grad_()
     kw = dict(n_heads=Hq, n_kv_heads=Hkv, head_dim=D)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="Beyond the reference item 1"):
         A.attention(tp, x, use_pallas=True, **kw)
     with torch.no_grad():
         A.attention(tp, x, use_pallas=True, **kw)
