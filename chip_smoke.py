@@ -73,7 +73,17 @@ of the JAX package. Phases, one JSON line each:
 5. parity    — one FedCET round of the reduced model on the card and on
                the CPU from the same parameters and tokens;
 6. prng      — the threefry dither of the whole fedlm-100m model, timed;
-7. train     — ``run_training`` of fedlm-100m at full width (4 clients,
+7. fig1      — the paper's Fig. 1 in float64 (``paper_fig1_algorithms``:
+               FedCET, FedTrack, SCAFFOLD, FedAvg on the §IV problem, tau
+               2, 300 rounds): e(k) at rounds 0/50/100/200/300, bytes per
+               round and seconds; the ordering fedcet < fedtrack <
+               scaffold at round 300; every card curve within 1e-10 of the
+               same algorithm's CPU curve at every round; FedCET launches
+               exactly fedcet_v 601 and fedcet_comm 301, the baselines no
+               kernel; FedAvg's drift floor (> 1e-4, flat over the last
+               100 rounds) on the heterogeneous-Hessian problem at 800
+               rounds;
+8. train     — ``run_training`` of fedlm-100m at full width (4 clients,
                batch 8, seq 128, tau 2, 5 rounds) on four paths, each with
                the launch counts reset just before and read just after:
                (A) the dense star round, (B) ``shift:q8`` on the arena (the
@@ -94,7 +104,23 @@ of the JAX package. Phases, one JSON line each:
                residual and where the time goes (gradients, each kernel,
                the dither, the scale pass, pack/unpack, the topology's
                reduce, the loss, the telemetry and its sketch kernel);
-8. serve     — ``launch/serve.py:generate_tokens`` at full width, float32,
+9. trainer   — ``fed/trainer.py:FedTrainer`` on fedlm-100m at full width
+               (4 clients, batch 8, seq 128, tau 2). Path T, B's scenario
+               (``shift:q8`` on the arena): 6 rounds straight (eval every
+               3); 3 rounds with a checkpoint at round 3 (keep 1) into a
+               temporary directory; a fresh trainer that resumes from it
+               and runs rounds 3-5 (checkpointing at 6): its final x, d
+               and shift memory equal the straight run's bit for bit, and
+               so do its round-5 losses; exact launches of fedcet_v and
+               fedcet_round_tail in each run; segment times, the
+               checkpoints' bytes and save and restore seconds, peak GB.
+               The directory needs ~10.3 GB of disk while round 6 is
+               saved (two 5.1 GB files) and is removed. Then T-fedavg,
+               T-scaffold and T-fedtrack (alpha 3e-3, no transform, 3
+               rounds, eval every round): finite losses, no FedCET kernel
+               launched, SCAFFOLD and FedTrack billed twice FedAvg's bytes
+               a round;
+10. serve    — ``launch/serve.py:generate_tokens`` at full width, float32,
                random weights from seed 0: (S1) fedlm-100m, batch 4,
                prompt 2048, 64 tokens; (S2) qwen3-1.7b, batch 1, prompt
                8192 through its 4096-slot ring cache, 32 tokens; (S3)
@@ -1332,6 +1358,296 @@ def phase_train():
     return launches
 
 
+#: the Fig. 1 phase: rounds, the rounds whose e(k) is printed, the limit of
+#: |card - CPU| on every round, and FedAvg's drift run (the reference's
+#: tests/test_baselines.py:19-33).
+FIG1_ROUNDS, FIG1_AT = 300, (0, 50, 100, 200, 300)
+FIG1_CARD_VS_CPU = 1e-10
+DRIFT_ROUNDS, DRIFT_FLOOR = 800, 1e-4
+FEDCET_KERNELS = ("fedcet_v", "fedcet_comm", "fedcet_comm4",
+                  "fedcet_round_tail", "stochastic_quantize",
+                  "stochastic_quantize_rows")
+
+
+def phase_fig1():
+    """The paper's Fig. 1 in float64 on the card: the four algorithms of
+    ``paper_fig1_algorithms`` on the §IV problem, tau 2, 300 rounds, each
+    curve held against the same script's CPU curve; FedCET launches its
+    triad and pair exactly as the quadratic phase does, the baselines no
+    kernel; then FedAvg's drift floor on the heterogeneous-Hessian
+    problem."""
+    from repro_torch.core import FedAvg
+    from repro_torch.core.simulate import (paper_fig1_algorithms,
+                                           simulate_quadratic)
+    from repro_torch.data.quadratic import (make_hetero_hessian_problem,
+                                            make_quadratic_problem)
+    from repro_torch.kernels import library as L
+
+    problem = make_quadratic_problem(0, device="cuda")
+    cpu_problem = problem.to("cpu")
+    launches, final = {}, {}
+    for name, algo in paper_fig1_algorithms(problem, tau=2).items():
+        L.reset_launches()
+        t0 = time.perf_counter()
+        res = simulate_quadratic(algo, problem, FIG1_ROUNDS, device="cuda")
+        errors = res.errors.cpu()
+        seconds = time.perf_counter() - t0
+        launches[f"fig1_{name}"] = dict(L.LAUNCHES)
+        t0 = time.perf_counter()
+        cpu = simulate_quadratic(algo, cpu_problem, FIG1_ROUNDS,
+                                 device="cpu").errors
+        cpu_seconds = time.perf_counter() - t0
+        gap = float((errors - cpu).abs().max())
+        final[name] = float(errors[-1])
+        emit({"phase": "fig1", "algo": name, "dtype": "float64",
+              "rounds": FIG1_ROUNDS, "e_k": {str(k): float(errors[k])
+                                             for k in FIG1_AT},
+              "bytes_per_round": res.bytes_per_round, "seconds": seconds,
+              "cpu_seconds": cpu_seconds, "max_abs_card_minus_cpu": gap,
+              "launches": {k: n for k, n in L.LAUNCHES.items() if n}})
+        check(gap <= FIG1_CARD_VS_CPU,
+              f"fig1 {name}: card and CPU curves differ by {gap}")
+        n = L.LAUNCHES
+        if name == "fedcet":  # init: v + pair; a round: two v, one pair
+            want = {"fedcet_v": 1 + 2 * FIG1_ROUNDS,
+                    "fedcet_comm": 1 + FIG1_ROUNDS}
+            check({k: v for k, v in n.items() if v} == want,
+                  f"fig1 fedcet launches {dict(n)}, expected {want}")
+        else:
+            check(not any(n.values()),
+                  f"fig1 {name} launched a kernel: {dict(n)}")
+    check(final["fedcet"] < final["fedtrack"] < final["scaffold"],
+          f"fig1 ordering at round {FIG1_ROUNDS}: {final}")
+    hetero = make_hetero_hessian_problem(11, device="cuda")
+    L.reset_launches()
+    errs = simulate_quadratic(
+        FedAvg(alpha=1.0 / (2 * 2 * hetero.L), tau=2,
+               n_clients=hetero.n_clients), hetero, DRIFT_ROUNDS,
+        device="cuda").errors.cpu()
+    launches["fig1_fedavg_drift"] = dict(L.LAUNCHES)
+    floor, move = float(errs[-1]), float(abs(errs[-1] - errs[-100]))
+    emit({"phase": "fig1", "algo": "fedavg", "problem": "hetero_hessian_11",
+          "rounds": DRIFT_ROUNDS, "final_error": floor,
+          "last_100_rounds_move": move, "floor_limit": DRIFT_FLOOR})
+    check(floor > DRIFT_FLOOR, f"FedAvg drift floor {floor}")
+    check(move < 0.01 * floor + 1e-12, f"FedAvg still moving: {move}")
+    check(not any(L.LAUNCHES.values()), "FedAvg launched a kernel")
+    return launches
+
+
+#: trainer paths: fedlm-100m at full width through ``FedTrainer``.
+TRAINER = dict(n_clients=4, batch=8, seq_len=128, tau=2)
+#: T's kernel launches per run: init (one v, one tail) + 2 v and 1 tail
+#: a round.
+T_LAUNCHES = {6: {"fedcet_v": 13, "fedcet_round_tail": 7},
+              3: {"fedcet_v": 7, "fedcet_round_tail": 4}}
+LOSS_KEYS = ("loss_global", "loss_local_mean", "heterogeneity_gap")
+
+
+class _SegmentClock:
+    """Host-clock time of each segment the trainer runs, synchronized at
+    both ends: wraps the trainer's round runners."""
+
+    def __init__(self, trainer):
+        self.segments = []
+        for attr in ("_runner", "_metric_runner"):
+            setattr(trainer, attr, self.wrap(getattr(trainer, attr)))
+
+    def wrap(self, run):
+        from repro_torch.utils.tree import tree_leaves
+
+        def timed(state, stacked):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(state, stacked)
+            torch.cuda.synchronize()
+            n = tree_leaves(stacked)[0].shape[0]
+            self.segments.append({"rounds": n, "round_s":
+                                  (time.perf_counter() - t0) / n})
+            return out
+
+        return timed
+
+
+def _trainer_setup():
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_hetero_lm_dataset
+    from repro_torch.models import build_model
+
+    cfg = get_config("fedlm-100m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    ds = make_hetero_lm_dataset(cfg.vocab_size, TRAINER["n_clients"],
+                                TRAINER["seq_len"], TRAINER["batch"],
+                                heterogeneity=0.8, seed=0, device="cuda")
+    return model, params, (lambda r: {"tokens": ds.sample_round(
+        r, TRAINER["tau"])})
+
+
+def _trainer(algo, model, cfg):
+    from repro_torch.fed import FedTrainer
+
+    trainer = FedTrainer(algo, model.loss, cfg, device="cuda")
+    return trainer, _SegmentClock(trainer)
+
+
+def _engine_leaves(state):
+    """x, d and the shift memory of an arena ``EngineState``."""
+    return {"x": state.inner.x.data, "d": state.inner.d.data,
+            "h": state.extras[0].data}
+
+
+def phase_trainer():
+    """Path T: FedCET with ``shift:q8`` on the arena (B's scenario) through
+    ``FedTrainer``: (i) 6 rounds straight, eval every 3; (ii) 3 rounds with
+    a checkpoint at round 3 (keep 1); (iii) a fresh trainer resumes from
+    it and runs rounds 3-5, checkpointing at 6. (iii)'s final x, d and
+    shift memory must equal (i)'s bit for bit, and so must its round-5
+    losses. Then the baselines' paths T-fedavg, T-scaffold and T-fedtrack
+    (``benchmarks/fed_lm_bench.py``'s configuration: alpha 3e-3, no
+    transform), 3 rounds each."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import FedScenario
+    from repro_torch.core import FedAvg, FedCET, FedTrack, Scaffold
+    from repro_torch.fed import TrainerConfig
+    from repro_torch.fed import trainer as trainer_mod
+    from repro_torch.kernels import library as L
+    from repro_torch.utils.tree import tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, batches_for = _trainer_setup()
+    init_b = tree_map(lambda b: b[0], batches_for(0))
+    algo = FedScenario(compression="shift:q8", arena=True).apply(
+        FedCET(alpha=ALPHA, c=C, tau=TRAINER["tau"],
+               n_clients=TRAINER["n_clients"]))
+    saves = []
+    real_save = trainer_mod.save
+
+    def timed_save(ckpt_dir, step, tree, keep=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = real_save(ckpt_dir, step, tree, keep=keep)
+        saves.append({"step": step, "seconds": time.perf_counter() - t0,
+                      "bytes": os.path.getsize(path),
+                      "files_after": ckpt.all_steps(ckpt_dir)})
+        return path
+
+    trainer_mod.save = timed_save
+    ckpt_dir = tempfile.mkdtemp(prefix="fedcet_ckpt_")
+    runs, launches = {}, {}
+    try:
+        for run, cfg in (
+                ("T", TrainerConfig(rounds=6, eval_every=3)),
+                ("T_checkpointed", TrainerConfig(
+                    rounds=3, ckpt_every=3, ckpt_keep=1, ckpt_dir=ckpt_dir)),
+                ("T_resumed", TrainerConfig(
+                    rounds=6, eval_every=3, ckpt_every=3, ckpt_keep=1,
+                    ckpt_dir=ckpt_dir))):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            L.reset_launches()
+            trainer, clock = _trainer(algo, model, cfg)
+            state = trainer.init_state(params, init_b)
+            start, restore_s = 0, None
+            if run == "T_resumed":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, start = trainer.maybe_resume(state)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                check(start == 3, f"T: resumed from round {start}, not 3")
+            state = trainer.fit(state, batches_for, start_round=start)
+            torch.cuda.synchronize()
+            launches[run] = dict(L.LAUNCHES)
+            # the states kept for the comparison count in the next peaks.
+            held = sum(t.numel() * t.element_size() for v in runs.values()
+                       for t in v["state"].values()) / 1e9
+            if run != "T_checkpointed":
+                runs[run] = {"state": _engine_leaves(state),
+                             "t": state.inner.t, "history": trainer.history}
+            emit({"phase": "trainer", "path": run, "algo": "fedcet",
+                  "scenario": {"compression": "shift:q8", "arena": True},
+                  "arch": "fedlm-100m", "reduced": False, **TRAINER,
+                  "rounds": cfg.rounds, "start_round": start,
+                  "segments": clock.segments, "history": trainer.history,
+                  "restore_s": restore_s, "held_gb": held,
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "launches": {k: n for k, n in L.LAUNCHES.items() if n}})
+            check(all(math.isfinite(h[k]) for h in trainer.history
+                      for k in LOSS_KEYS), f"{run}: a loss is not finite")
+            want = T_LAUNCHES[cfg.rounds - start]
+            got = {k: n for k, n in L.LAUNCHES.items() if n}
+            check(got == want, f"{run} launches {got}, expected {want}")
+            del trainer, clock, state
+    finally:
+        trainer_mod.save = real_save
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    u, r = runs["T"], runs["T_resumed"]
+    same = {k: torch.equal(u["state"][k], r["state"][k]) for k in u["state"]}
+    row_u = next(h for h in u["history"] if h["round"] == 5)
+    row_r = next(h for h in r["history"] if h["round"] == 5)
+    rows_equal = all(row_u[k] == row_r[k] for k in LOSS_KEYS)
+    emit({"phase": "trainer", "check": "resume_vs_uninterrupted",
+          "bitwise_equal": same, "t": [u["t"], r["t"]],
+          "round_5_rows_equal": rows_equal, "saves": saves,
+          "state_bytes": sum(t.numel() * t.element_size()
+                             for t in u["state"].values())})
+    check(all(same.values()) and u["t"] == r["t"],
+          f"T: the resumed run's state differs from the uninterrupted "
+          f"run's: {same}")
+    check(rows_equal, f"T: round-5 rows differ: {row_u} vs {row_r}")
+    check([s["step"] for s in saves] == [3, 6]
+          and saves[-1]["files_after"] == [6], f"T: checkpoints {saves}")
+    del runs, u, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    comm = {}
+    for name, base in (
+            ("T-fedavg", FedAvg(alpha=ALPHA, tau=TRAINER["tau"],
+                                n_clients=TRAINER["n_clients"])),
+            ("T-scaffold", Scaffold(alpha_l=ALPHA, tau=TRAINER["tau"],
+                                    n_clients=TRAINER["n_clients"])),
+            ("T-fedtrack", FedTrack(alpha=ALPHA, tau=TRAINER["tau"],
+                                    n_clients=TRAINER["n_clients"]))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        L.reset_launches()
+        trainer, clock = _trainer(base, model,
+                                  TrainerConfig(rounds=3, eval_every=1))
+        state = trainer.fit(trainer.init_state(params, init_b), batches_for)
+        torch.cuda.synchronize()
+        launches[name] = dict(L.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        trainer.evaluate(state, batches_for(2))
+        eval_s = time.perf_counter() - t0
+        comm[name] = trainer.history[-1]["comm_bytes"] / 3
+        emit({"phase": "trainer", "path": name, "algo": base.name,
+              "arch": "fedlm-100m", "reduced": False, **TRAINER,
+              "rounds": 3, "segments": clock.segments,
+              "eval_s": eval_s, "history": trainer.history,
+              "comm_bytes_per_round": comm[name], "peak_gb": peak,
+              "launches": {k: n for k, n in L.LAUNCHES.items() if n}})
+        check(all(math.isfinite(h[k]) for h in trainer.history
+                  for k in LOSS_KEYS), f"{name}: a loss is not finite")
+        check(not any(L.LAUNCHES[k] for k in FEDCET_KERNELS),
+              f"{name} launched a FedCET kernel: {dict(L.LAUNCHES)}")
+        del trainer, clock, state
+        gc.collect()
+    check(comm["T-scaffold"] == comm["T-fedtrack"] == 2 * comm["T-fedavg"],
+          f"baseline bytes per round {comm}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 #: serve paths: full width, float32, random weights from seed 0, the
 #: reference's prompt draw (make_batch under seed 1); the kernel each
 #: prefill launches once per layer, and the limit of prefill + decode
@@ -1586,7 +1902,9 @@ def main() -> int:
     phase_quadratic()
     phase_parity()
     phase_prng()
-    paths = phase_train()
+    paths = phase_fig1()
+    paths.update(phase_train())
+    paths.update(phase_trainer())
     paths.update(phase_serve())
     summary = []
     for form, (src, replaces) in KERNELS.items():
@@ -1601,7 +1919,8 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "library_device_ms": k["library_device_ms"],
-            "launches_by_path": {p: n[form] for p, n in paths.items()},
+            "launches_by_path": {p: n.get(form, 0)
+                                 for p, n in paths.items()},
             **({"routes": routes} if routes else {})})
     check(all(s["launches"] > 0 for s in summary),
           f"a kernel form has no launch on its path: {summary}")

@@ -1,7 +1,13 @@
 """Engine specs beside FedCET (port of ``src/repro/core/baselines/``):
-NIDS in this slice. FedAvg, SCAFFOLD, FedTrack/FedLin, FedProx and FedDyn
-are not ported yet (ROADMAP Queue 1 items 4 and 9)."""
+FedAvg, FedDyn, FedLin / FedTrack, FedProx, NIDS and SCAFFOLD."""
 
+from repro_torch.core.baselines.fedavg import FedAvg, FedAvgState
+from repro_torch.core.baselines.feddyn import FedDyn, FedDynState
+from repro_torch.core.baselines.fedlin import FedLin, FedLinState, FedTrack
+from repro_torch.core.baselines.fedprox import FedProx, FedProxState
 from repro_torch.core.baselines.nids import NIDS, NIDSState
+from repro_torch.core.baselines.scaffold import Scaffold, ScaffoldState
 
-__all__ = ["NIDS", "NIDSState"]
+__all__ = ["FedAvg", "FedAvgState", "FedDyn", "FedDynState", "FedLin",
+           "FedLinState", "FedProx", "FedProxState", "FedTrack", "NIDS",
+           "NIDSState", "Scaffold", "ScaffoldState"]

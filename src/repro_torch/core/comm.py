@@ -1,5 +1,6 @@
-"""Communication accounting (port of ``src/repro/core/comm.py:64-342``:
-the bit-true helpers and ``CommMeter``).
+"""Communication accounting and the uplink helpers of FedLin (port of
+``src/repro/core/comm.py``: ``topk_sparsify``, ``quantize_bf16``, the
+bit-true helpers, ``CommMeter`` and ``sparsified_up_frac``).
 
 The paper's headline (Remark 2) is a communication-volume claim: FedCET
 moves ONE model-sized vector per client per round each way. These helpers
@@ -17,9 +18,30 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.utils.tree import tree_num_params
+
+
+def topk_sparsify(a: torch.Tensor, k_frac: float) -> torch.Tensor:
+    """Keep the top ``round(k_frac * size)`` (min 1) entries of ``|a|`` (per
+    leaf), zeroing the rest; shape-preserving. The threshold is the k-th
+    largest magnitude and every entry with ``|a| >= threshold`` is kept, so
+    ties keep more than k entries, as ``jax.lax.top_k``'s threshold does in
+    the reference (the indices are never used)."""
+    if k_frac >= 1.0:
+        return a
+    flat = a.reshape(-1)
+    k = max(1, int(round(k_frac * flat.numel())))
+    mag = flat.abs()
+    thresh = torch.topk(mag, k).values[-1]
+    return torch.where(mag >= thresh, flat, 0.0).reshape(a.shape)
+
+
+def quantize_bf16(a: torch.Tensor) -> torch.Tensor:
+    """Round-trip through bfloat16: a half-width transmitted vector."""
+    return a.to(torch.bfloat16).to(a.dtype)
 
 
 def leaf_name(path) -> str:
@@ -207,3 +229,10 @@ class CommMeter:
     @property
     def total(self) -> int:
         return self.bytes_up + self.bytes_down
+
+
+def sparsified_up_frac(k_frac: float) -> float:
+    """Effective uplink fraction for top-k: values + int32 indices."""
+    if k_frac >= 1.0:
+        return 1.0
+    return 2.0 * k_frac

@@ -582,7 +582,7 @@ def with_compression(algo: RoundEngine, *, k_frac: float = 1.0,
     raise NotImplementedError(
         "with_compression(k_frac=/quantize=) (the legacy top-k + bf16 "
         "error-feedback transform) is not yet ported to PyTorch: it comes "
-        "with a later slice of the port (ROADMAP Queue 1 item 6); pass "
+        "with a later slice of the port (ROADMAP Queue 1 item 1); pass "
         "compressor= instead")
 
 
@@ -652,8 +652,9 @@ def make_round_runner(algo, grad_fn: GradFn, *, metric_fn=None,
       per-round batch tree (leaves ``[tau, clients, ...]``).
 
     ``metric_fn(state)`` (or ``metric_fn(state, round_batches)`` with
-    ``metric_with_batch``) runs after every round; its tensor results are
-    stacked into the second return value (``None`` without a hook).
+    ``metric_with_batch``) runs after every round; its results (a tensor
+    or a tree of tensors) are stacked leaf by leaf into the second return
+    value (``None`` without a hook).
 
     With telemetry attached (``with_telemetry``) each round runs under a
     :func:`~repro_torch.core.telemetry.collect` tape and the second return
@@ -675,7 +676,8 @@ def make_round_runner(algo, grad_fn: GradFn, *, metric_fn=None,
         return s, tel.finalize(tape, algo, s)
 
     def _stack(ys, tls):
-        m = None if metric_fn is None else torch.stack(ys)
+        m = None if metric_fn is None else tree_map(
+            lambda *a: torch.stack(a), ys[0], *ys[1:])
         if tel is None:
             return m
         return {"metric": m,

@@ -1,5 +1,6 @@
 """Sequential federated simulation driver (port of
-``src/repro/core/simulate.py``: ``simulate_quadratic``).
+``src/repro/core/simulate.py``: ``simulate_quadratic`` and the Fig. 1
+line-up ``paper_fig1_algorithms``).
 
 Runs a FederatedAlgorithm against the paper's quadratic problem for K
 communication rounds through ``engine.run_rounds``, full-batch, with the
@@ -64,3 +65,23 @@ def simulate_quadratic(algo, problem: QuadraticProblem, rounds: int, *,
                * problem.n_clients)
     return SimResult(errors=errors, state=final_state,
                      bytes_per_round=n_bytes, telemetry=telemetry)
+
+
+def paper_fig1_algorithms(problem: QuadraticProblem, tau: int = 2):
+    """The four algorithms of Fig. 1 (+ FedAvg as the drift illustration),
+    with the exact learning-rate rules the paper prescribes."""
+    from repro_torch.core.baselines import FedAvg, FedTrack, Scaffold
+    from repro_torch.core.fedcet import FedCET, max_weight_c
+    from repro_torch.core.lr_search import lr_search
+
+    mu, L, n = problem.mu, problem.L, problem.n_clients
+    alpha = lr_search(mu, L, tau)  # Algorithm 1, h = 0.001 * alpha_0
+    return {
+        "fedcet": FedCET(alpha=alpha, c=max_weight_c(mu, alpha), tau=tau,
+                         n_clients=n),
+        "fedtrack": FedTrack(alpha=1.0 / (18.0 * tau * L), tau=tau,
+                             n_clients=n),
+        "scaffold": Scaffold(alpha_l=1.0 / (81.0 * tau * L), alpha_g=1.0,
+                             tau=tau, n_clients=n),
+        "fedavg": FedAvg(alpha=1.0 / (2.0 * tau * L), tau=tau, n_clients=n),
+    }

@@ -17,14 +17,19 @@ The synchronous round takes the reference's ``compression`` (a
 ``tier_compression``, composed by ``configs/base.py:FedScenario``, and its
 in-round telemetry (``telemetry``, a ``core/telemetry.py`` sink spec such
 as ``jsonl:run.jsonl,hist:48``) with the profiler window
-(``trace_rounds``, ``trace_dir``). The other options (delay, cohort,
-compression plans, checkpoints) raise "not yet ported" when set to
+(``trace_rounds``, ``trace_dir``). With ``ckpt_dir`` the full round state
+is saved every 50 rounds (``checkpoint/ckpt.py``, the reference's
+``.npz`` layout; like the reference, the run saves and does not resume:
+``fed/trainer.py:FedTrainer.maybe_resume`` resumes). The other options
+(delay, cohort, compression plans) raise "not yet ported" when set to
 anything but their default. The mesh launcher (``make_plan``,
 ``lower_train_step``) waits for a multi-GPU slice.
 
 Run as a script:
     python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
         --compression shift:q8 --arena
+    python -m repro_torch.launch.train --arch fedlm-100m --steps 100 \
+        --device cpu --ckpt-dir ckpts
     python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
         --clients 8 --batch 4 --topology ring:sparse --arena \
         --telemetry jsonl:run.jsonl,hist:48 --trace-rounds 3:4
@@ -37,6 +42,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.ckpt import save
 from repro_torch.configs import get_config
 from repro_torch.configs.base import FedScenario
 from repro_torch.core import telemetry as tele
@@ -57,7 +63,10 @@ SCENARIO_DEFAULTS = {
 }
 #: the options the port runs; the others accept their default only.
 PORTED = ("compression", "participation", "arena", "topology",
-          "tier_compression", "telemetry", "trace_rounds", "trace_dir")
+          "tier_compression", "telemetry", "trace_rounds", "trace_dir",
+          "ckpt_dir")
+#: rounds between the checkpoints of a run with ``ckpt_dir``.
+CKPT_EVERY = 50
 
 
 def run_training(arch: str, *, steps: int = 100, tau: int = 2,
@@ -70,13 +79,16 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     caller passes another; with no card and no explicit device it raises).
 
     ``scenario`` takes ``compression``, ``participation``, ``arena``,
-    ``topology``, ``tier_compression``, ``telemetry``, ``trace_rounds``
-    and ``trace_dir`` (see the module docstring); the reference's other
-    options raise "not yet ported" unless at their default.
+    ``topology``, ``tier_compression``, ``telemetry``, ``trace_rounds``,
+    ``trace_dir`` and ``ckpt_dir`` (see the module docstring); the
+    reference's other options raise "not yet ported" unless at their
+    default.
 
     The rounds run through ``engine.make_round_runner`` in segments that
-    end at every logged round and at the edges of the ``trace_rounds``
-    window. ``telemetry`` is a sink spec (``jsonl:<path>``, ``csv:<path>``,
+    end at every logged round, at the edges of the ``trace_rounds``
+    window and, with ``ckpt_dir``, at every 50th round, after which the
+    state is saved as ``step_<rounds done>.npz`` (the three newest
+    kept). ``telemetry`` is a sink spec (``jsonl:<path>``, ``csv:<path>``,
     ``stdout[:k]``, ``memory``, comma-chained; ``hist[:bins[:lo:hi]]`` /
     ``topk[:k]`` turn on the per-client ``||d_i||`` and drift sketches,
     ``leafstats`` the per-leaf breakdown): any non-empty spec attaches the
@@ -151,8 +163,11 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
                               out_dir=opt["trace_dir"])
     trace_stops = set(trace.boundaries())
 
+    ckpt_dir = opt["ckpt_dir"]
+
     def is_stop(r):
-        return r % log_every == 0 or r == steps - 1 or r in trace_stops
+        return (r % log_every == 0 or r == steps - 1 or r in trace_stops
+                or (ckpt_dir is not None and (r + 1) % CKPT_EVERY == 0))
 
     meter = CommMeter.for_params(params, algo=algo, n_clients=n_clients)
     bits = comm_bits_per_round(algo, meter.n_params, n_clients, leaf_info)
@@ -213,6 +228,8 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
             history["seconds"].append(seconds)
             if callback:
                 callback(stop, losses[-1], meter.total, state)
+        if ckpt_dir and (stop + 1) % CKPT_EVERY == 0:
+            save(ckpt_dir, stop + 1, state)
     trace.close()
     tele.close_sinks(sinks)
     return history
@@ -277,6 +294,8 @@ def main(argv=None):
                          "torch.profiler; the Chrome trace is written "
                          "under --trace-dir")
     ap.add_argument("--trace-dir", default="profile_trace")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save the round state here every 50 rounds")
     for k, v in SCENARIO_DEFAULTS.items():
         if k in PORTED:
             continue

@@ -1,11 +1,14 @@
-"""Weights carried across from the reference package.
+"""Weights and algorithm states carried across from the reference package.
 
-``params_from_numpy`` turns a parameter tree of numpy arrays — e.g. the
-reference's params after ``jax.tree.map(np.asarray, params)`` — into the
+``params_from_numpy`` turns a parameter tree of numpy arrays (e.g. the
+reference's params after ``jax.tree.map(np.asarray, params)``) into the
 port's tree of tensors with the same keys, nesting and layouts
-(``lm_head [d, V]``, dense weights ``[d_in, d_out]``); ``state_from_numpy``
-does the same for a FedCET state. Only numpy crosses the boundary, so
-this module imports nothing of the reference.
+(``lm_head [d, V]``, dense weights ``[d_in, d_out]``). ``state_from_numpy``
+does the same for an algorithm state: FedCET's (both forms), NIDS's and
+every baseline's (FedAvg, SCAFFOLD, FedLin / FedTrack, FedProx, FedDyn),
+matched by the state class's name, with the step counter ``t`` as a
+Python int. Only numpy crosses the boundary, so this module imports
+nothing of the reference.
 """
 
 from __future__ import annotations
@@ -13,7 +16,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.fedcet import FedCETState
+from repro_torch.core.baselines import (FedAvgState, FedDynState,
+                                        FedLinState, FedProxState, NIDSState,
+                                        ScaffoldState)
+from repro_torch.core.fedcet import FedCETLiteralState, FedCETState
+
+#: the port's counterpart of each reference state class, by name.
+STATES = {cls.__name__: cls for cls in (
+    FedCETState, FedCETLiteralState, NIDSState, FedAvgState, ScaffoldState,
+    FedLinState, FedProxState, FedDynState)}
 
 
 def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
@@ -29,10 +40,12 @@ def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
     return t.to(device).contiguous()
 
 
-def state_from_numpy(state, device="cpu",
-                     dtype: torch.dtype | None = None) -> FedCETState:
-    """A FedCET state with numpy ``x`` / ``d`` trees and a scalar ``t``
-    (the reference's ``FedCETState`` after ``np.asarray`` on its leaves)."""
-    return FedCETState(x=params_from_numpy(state.x, device, dtype),
-                       d=params_from_numpy(state.d, device, dtype),
-                       t=int(np.asarray(state.t)))
+def state_from_numpy(state, device="cpu", dtype: torch.dtype | None = None):
+    """A reference algorithm state with numpy leaves and a scalar ``t``
+    (after ``np.asarray`` on its leaves) -> the port's state of the same
+    name: each tree field through :func:`params_from_numpy`, ``t`` an
+    int."""
+    cls = STATES[type(state).__name__]
+    return cls(**{f: int(np.asarray(v)) if f == "t"
+                  else params_from_numpy(v, device, dtype)
+                  for f, v in zip(state._fields, state)})
