@@ -100,10 +100,26 @@ of the JAX package. Phases, one JSON line each:
                launches exactly E's kernels plus ``telemetry_sketch`` 10,
                its JSONL renders with ``benchmarks/report.py`` and the
                profiler trace of round 3 gives the top device kernels and
-               the device idle share. Per round: loss, time, the Lemma 2
-               residual and where the time goes (gradients, each kernel,
-               the dither, the scale pass, pack/unpack, the topology's
-               reduce, the loss, the telemetry and its sketch kernel);
+               the device idle share; then at 4 clients again (P) a
+               per-leaf ``CompressionPlan`` on the arena, allocated at
+               uniform ``shift:q8``'s exact bits on the run's own
+               parameters (``absmax``, ``shift`` wrappers): exactly
+               fedcet_v 11, fedcet_comm4 6 and one stochastic_quantize per
+               quantized leaf per aggregation, no fedcet_round_tail (a plan
+               is not ``Shifted(StochasticQuant)``). Per round: loss, time,
+               the Lemma 2 residual and where the time goes (gradients,
+               each kernel, the dither, the scale pass, pack/unpack, the
+               topology's reduce, the loss, the telemetry and its sketch
+               kernel);
+8b. plans    — per-leaf plans at full width, fedlm-100m's seed-0 weights
+               from the CPU generator moved to the card: the benchmark's
+               head-to-head (``benchmarks/comp_plan_bench.py``), plan bits
+               <= uniform ``shift:q8`` bits exactly and the quantization
+               MSE ratio at most the reference's own full-width value
+               (1.0355: the reference does not reach < 1 at full width);
+               the uniform plan ``*:shift:q8`` and
+               ``Shifted(StochasticQuant(8))`` on one full-width 4-client
+               message and shift memory, bitwise equal;
 9. trainer   — ``fed/trainer.py:FedTrainer`` on fedlm-100m at full width
                (4 clients, batch 8, seq 128, tau 2). Path T, B's scenario
                (``shift:q8`` on the arena): 6 rounds straight (eval every
@@ -216,7 +232,7 @@ def check(cond, msg):
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(obj, default=str), flush=True)
 
 
 def smi_line() -> str:
@@ -1142,6 +1158,15 @@ PATHS[TELEMETRY_PATH] = (
     ("fedcet_v", "fedcet_comm", "gossip_reduce", "telemetry_sketch"),
     TRAIN_TOPO)
 #: paths whose final x and d are compared (kept on the host).
+#: path P: fedlm-100m under a per-leaf plan, ``CompressionPlan().allocate``
+#: at uniform ``shift:q8``'s exact bits on the run's own parameters
+#: (``absmax``, ``shift``), on the arena. A plan is not
+#: ``Shifted(StochasticQuant)``, so no fused round tail: the per-leaf
+#: quantize kernel, once per quantized leaf per aggregation.
+PLAN_PATH = "P_plan_arena"
+PATHS[PLAN_PATH] = ({"arena": True},
+                    ("fedcet_v", "stochastic_quantize", "fedcet_comm4"),
+                    TRAIN)
 COMPARED = ("E_ring_sparse_arena", "F_ring_dense_arena",
             "E2_ring_sparse_arena_repeat", TELEMETRY_PATH)
 _E_LAUNCHES = {"fedcet_v": 11, "fedcet_comm": 6, "gossip_reduce": 6}
@@ -1152,6 +1177,56 @@ MAIN_PATH_LAUNCHES = {"B_shift_q8_arena": {"fedcet_v": 11,
                       # 5 rounds x (the d_norm and drift sketches).
                       TELEMETRY_PATH: {**_E_LAUNCHES,
                                        "telemetry_sketch": 10}}
+
+
+def _allocated_plan(params, **allocate_kw):
+    """A plan at uniform ``shift:q8``'s exact per-leaf bits on ``params``,
+    allocated by ``absmax`` with shift wrappers (``allocate_kw`` passes the
+    width limits on); returns ``(plan, budget bits, plan bits, leaf
+    info)``."""
+    from repro_torch.core import FedCET
+    from repro_torch.core.comm import leaf_info_of, message_leaf_bits_of
+    from repro_torch.core.compressors import CompressionPlan
+    from repro_torch.core.engine import with_compression
+
+    info = leaf_info_of(params)
+    uniform = with_compression(
+        FedCET(alpha=ALPHA, c=C, tau=TRAIN["tau"],
+               n_clients=TRAIN["n_clients"]), compressor="shift:q8")
+    budget = sum(message_leaf_bits_of(uniform, info))
+    plan = CompressionPlan().allocate(budget, leaves=params,
+                                      sensitivity="absmax", wrap="shift",
+                                      **allocate_kw)
+    return plan, budget, sum(plan.tree_wire_bits(info)), info
+
+
+def _plan_scenario():
+    """Path P's scenario: the plan allocated on the very parameters
+    ``run_training`` draws (fedlm-100m, seed 0, on the card), and the exact
+    launches it implies (init + 5 aggregations, one quantize launch per
+    quantized leaf in each)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import StochasticQuant
+    from repro_torch.models import build_model
+
+    params = build_model(get_config("fedlm-100m")).init(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    plan, budget, bits, info = _allocated_plan(params)
+    del params
+    torch.cuda.empty_cache()
+    quantized = sum(isinstance(getattr(plan.resolve(i, nm), "inner", None),
+                               StochasticQuant)
+                    for i, (nm, _) in enumerate(info))
+    steps = TRAIN["steps"] + 1
+    MAIN_PATH_LAUNCHES[PLAN_PATH] = {"fedcet_v": 2 * TRAIN["steps"] + 1,
+                                     "fedcet_comm4": steps,
+                                     "stochastic_quantize": steps * quantized}
+    emit({"phase": "train", "path": PLAN_PATH, "check": "plan",
+          "budget_bits": budget, "plan_bits": bits, "leaves": len(info),
+          "quantized_leaves": quantized,
+          "rules": [[p, c.inner.bits] for p, c in plan.rules]})
+    check(bits <= budget, f"P: the plan spends {bits} > {budget} bits")
+    return {"compression_plan": plan}
 
 
 def _train_path(name, scenario, expected, config):
@@ -1307,6 +1382,8 @@ def phase_train():
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     launches, losses, finals, rounds = {}, {}, {}, {}
     for name, (scenario, expected, config) in PATHS.items():
+        if name == PLAN_PATH:
+            scenario = {**scenario, **_plan_scenario()}
         launches[name], losses[name], fin, rounds[name] = _train_path(
             name, scenario, expected, config)
         if name in COMPARED:  # on the host: the next path's peak stays its
@@ -1356,6 +1433,102 @@ def phase_train():
     check(d_gap <= D_GAP_MAX, f"dense and sparse ring final drift differ by "
                               f"{d_gap} (relative)")
     return launches
+
+
+#: the reference's quantization-error ratio (plan / uniform q8) at FULL
+#: width, on its own seed-0 parameters in the settings of its committed
+#: benchmark run: tests/test_torch_comp_plan.py computes it
+#: (``FULL_WIDTH_RATIO``). The reference does not reach < 1 there, so the
+#: ``plans`` phase holds the card's ratio to at most this value.
+PLAN_FULL_WIDTH_RATIO = 1.0354588721039204
+
+
+def _head_to_head(plan, params):
+    """``benchmarks/comp_plan_bench.py:quant_error_head_to_head`` in the
+    port: one message-shaped tree (the parameters, one client) through
+    bare uniform q8 and through the plan's bare per-leaf quantizers, from
+    key 7 (round one: zero shift memory), relative MSE of each."""
+    from repro_torch.core import prng
+    from repro_torch.core.comm import leaf_info_of
+    from repro_torch.core.compressors import (ErrorFeedback, Shifted,
+                                              StochasticQuant)
+    from repro_torch.utils.tree import tree_leaves
+
+    def strip(c):
+        return c.inner if isinstance(c, (ErrorFeedback, Shifted)) else c
+
+    key = prng.key(7)
+    flat = tree_leaves(params)
+    names = [nm for nm, _ in leaf_info_of(params)]
+
+    def tree_mse(comp_for_leaf):
+        num = den = 0.0
+        for i, leaf in enumerate(flat):
+            comp = comp_for_leaf(i)
+            q = leaf if comp is None else comp.compress(
+                prng.fold_in(key, i) if comp.requires_key else None,
+                leaf[None])[0]
+            num += float(torch.sum(torch.square(q - leaf)))
+            den += float(torch.sum(torch.square(leaf)))
+        return num / den
+
+    q8 = StochasticQuant(8)
+    uni = tree_mse(lambda i: q8)
+    return uni, tree_mse(lambda i: strip(plan.resolve(i, names[i])))
+
+
+def phase_plans():
+    """Per-leaf plans at full width (fedlm-100m, seed 0, drawn with the
+    CPU generator so any machine draws the same weights, then moved to the
+    card): (a) the benchmark's head-to-head, the plan allocated at uniform
+    ``shift:q8``'s exact bits (``absmax``, ``shift``, max 14 bits as the
+    benchmark): plan bits <= uniform bits exactly, and the MSE ratio at
+    most the reference's own full-width value; (b) the uniform plan
+    ``*:shift:q8`` against ``Shifted(StochasticQuant(8))`` on one
+    full-width 4-client message tree and shift memory, from one key:
+    message and memory bitwise equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.compressors import (Shifted, StochasticQuant,
+                                              parse_plan)
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    params = tree_map(lambda t: t.cuda(), build_model(
+        get_config("fedlm-100m")).init(torch.Generator().manual_seed(0)))
+    t0 = time.perf_counter()
+    plan, budget, bits, info = _allocated_plan(params, min_bits=2,
+                                               max_bits=14)
+    alloc_s = time.perf_counter() - t0
+    uni, pln = _head_to_head(plan, params)
+    ratio = pln / uni
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    msg = tree_map(lambda t: t[None] + 1e-2 * torch.randn(
+        (4,) + tuple(t.shape), generator=gen, device="cuda"), params)
+    mem = tree_map(lambda t: 0.5 * t + 1e-3 * torch.randn(
+        t.shape, generator=gen, device="cuda"), msg)
+    del params
+    key = prng.fold_in(prng.key(3), 17)
+    out_p, mem_p = parse_plan("*:shift:q8").apply(key, msg, mem)
+    out_u, mem_u = Shifted(StochasticQuant(8)).apply(key, msg, mem)
+    same = (_bitwise(tree_leaves(out_p), tree_leaves(out_u))
+            and _bitwise(tree_leaves(mem_p), tree_leaves(mem_u)))
+    moved = not _bitwise(tree_leaves(out_p), tree_leaves(msg))
+    emit({"phase": "plans", "leaves": len(info),
+          "params": sum(n for _, n in info), "uniform_bits": budget,
+          "plan_bits": bits, "bits_ratio": bits / budget,
+          "mse_uniform_q8": uni, "mse_plan": pln, "mse_ratio": ratio,
+          "mse_ratio_limit": PLAN_FULL_WIDTH_RATIO, "allocate_s": alloc_s,
+          "rules": [[p, c.inner.bits] for p, c in plan.rules],
+          "uniform_plan_bitwise_equal_shifted_q8": same})
+    del msg, mem, out_p, mem_p, out_u, mem_u
+    torch.cuda.empty_cache()
+    check(bits <= budget, f"plans: the plan spends {bits} > {budget} bits")
+    check(ratio <= PLAN_FULL_WIDTH_RATIO,
+          f"plans: MSE ratio {ratio} above the reference's full-width "
+          f"{PLAN_FULL_WIDTH_RATIO}")
+    check(same and moved, "plans: '*:shift:q8' differs from "
+                          "Shifted(StochasticQuant(8)) on the card")
 
 
 #: the Fig. 1 phase: rounds, the rounds whose e(k) is printed, the limit of
@@ -1904,6 +2077,7 @@ def main() -> int:
     phase_prng()
     paths = phase_fig1()
     paths.update(phase_train())
+    phase_plans()
     paths.update(phase_trainer())
     paths.update(phase_serve())
     summary = []

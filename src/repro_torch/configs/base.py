@@ -126,7 +126,6 @@ class ArchConfig:
 
 #: FedScenario fields whose mechanisms later slices port (see ROADMAP.md).
 _SCENARIO_LATER = {
-    "compression_plan": ("none", "per-leaf compression plans"),
     "delay": ("none", "the staleness slice"),
     "stale_policy": ("last", "the staleness slice"),
     "cohort": ("none", "the cohort slice"),
@@ -137,20 +136,25 @@ _SCENARIO_LATER = {
 class FedScenario:
     """Launch-level federated-scenario knob: which compressor rides the
     uplink (``compression``, a ``core/compressors.py:from_spec`` spec such
-    as ``"shift:q8"``), what fraction of clients participates per round,
-    whether the client store lives in the packed arena, the aggregation
-    geometry (``topology``, a ``core/topology.py:parse_topology`` spec:
-    ``"star"``, ``"hier:g8"``, ``"ring"``, ``"ring:sparse"``,
-    ``"er:0.4:t"``; ``tier_compression`` re-compresses a hierarchy's
-    interior tiers), the in-round telemetry spec (``telemetry``: ``True``,
-    a ``core/telemetry.py:Telemetry`` or a sink spec string such as
-    ``"jsonl:run.jsonl,hist:48"``), and the seed of their random schedules.
+    as ``"shift:q8"``, ``"randk:0.25"`` or ``"ef:topk:0.3+bf16"``), or a
+    per-leaf plan instead (``compression_plan``: comma-separated
+    first-match-wins ``pattern:spec`` rules for ``parse_plan``,
+    ``"embed*:q12,ln*:bf16,*:shift:q6"``, or a ready ``CompressionPlan``,
+    e.g. from ``plan.allocate``; ``error_feedback`` applies per rule), what
+    fraction of clients participates per round, whether the client store
+    lives in the packed arena, the aggregation geometry (``topology``, a
+    ``core/topology.py:parse_topology`` spec: ``"star"``, ``"hier:g8"``,
+    ``"ring"``, ``"ring:sparse"``, ``"er:0.4:t"``; ``tier_compression``
+    re-compresses a hierarchy's interior tiers), the in-round telemetry
+    spec (``telemetry``: ``True``, a ``core/telemetry.py:Telemetry`` or a
+    sink spec string such as ``"jsonl:run.jsonl,hist:48"``), and the seed
+    of their random schedules.
 
-    The other fields (delay and stale policy, cohort, compression plans)
-    mirror the reference and must stay at their defaults: anything else
-    raises "not yet ported". ``apply`` composes the scenario onto any
-    engine algorithm, in the reference's order (telemetry last: an
-    observer of the composed round)."""
+    The other fields (delay and stale policy, cohort) mirror the
+    reference and must stay at their defaults: anything else raises "not
+    yet ported". ``apply`` composes the scenario onto any engine
+    algorithm, in the reference's order (telemetry last: an observer of
+    the composed round)."""
 
     compression: str = "none"
     compression_plan: Any = "none"
@@ -174,6 +178,7 @@ class FedScenario:
                     f"PyTorch: it comes with {where}")
 
     def apply(self, algo):
+        from repro_torch.core.compressors import from_spec, parse_plan
         from repro_torch.core.engine import (with_arena, with_compression,
                                              with_participation,
                                              with_telemetry, with_topology)
@@ -182,7 +187,20 @@ class FedScenario:
         algo = with_topology(algo, self.topology, seed=self.seed,
                              tier_compression=self.tier_compression)
         algo = with_participation(algo, self.participation, seed=self.seed)
-        algo = with_compression(algo, compressor=self.compression,
-                                error_feedback=self.error_feedback,
-                                seed=self.seed)
+        comp = from_spec(self.compression)
+        plan = parse_plan(self.compression_plan,
+                          error_feedback=self.error_feedback)
+        if comp is not None and plan is not None:
+            raise ValueError(
+                "pass EITHER compression= or compression_plan=, not both: "
+                "a plan IS the uplink compressor (put a '*:<spec>' "
+                "catch-all rule in the plan for the uniform part): "
+                f"compression={self.compression!r}, "
+                f"compression_plan={self.compression_plan!r}")
+        if plan is not None:
+            algo = with_compression(algo, compressor=plan, seed=self.seed)
+        if comp is not None:
+            algo = with_compression(algo, compressor=comp,
+                                    error_feedback=self.error_feedback,
+                                    seed=self.seed)
         return with_telemetry(algo, self.telemetry)

@@ -6,8 +6,11 @@ The paper's headline (Remark 2) is a communication-volume claim: FedCET
 moves ONE model-sized vector per client per round each way. These helpers
 bill it bit-true from the algorithm's attached compressor stack: the
 uplink pays the stack's exact per-leaf wire bits (``shift:q8`` is 8 bits
-per coordinate) times the sampling duty cycle; the downlink stays dense
-f32 and is billed to present clients only. An attached topology reshapes
+per coordinate; a sparsifier its actual kept count per leaf, ``max(1,
+round(k * n))``; a ``CompressionPlan`` each leaf's own rule, resolved by
+the leaf's name and index from :func:`leaf_info_of`) times the sampling
+duty cycle; the downlink stays dense f32 and is billed to present clients
+only. An attached topology reshapes
 the traffic (:func:`comm_hops_per_round`): gossip bills one message per
 directed edge on the client hop and no broadcast (the same for the dense
 and sparse lowerings); a hierarchy adds its aggregator-tier messages,
@@ -63,14 +66,17 @@ def leaf_name(path) -> str:
 
 def leaf_info_of(params) -> list:
     """The message leaf decomposition ``[(name, n_coords), ...]`` of a
-    model tree, in flatten order (the arena's layout order)."""
+    model tree, in flatten order (the arena's layout order): names feed
+    plan globs, sizes the exact per-leaf wire-bit rounding."""
     flat, _ = pytree.tree_flatten_with_path(params)
     return [(leaf_name(p), int(leaf.numel())) for p, leaf in flat]
 
 
 def message_leaf_bits_of(algo, leaf_info) -> list | None:
     """Per-leaf exact uplink wire bits for one client's one UP vector, or
-    None when the algorithm has no ``message_leaf_bits`` hook."""
+    None when the algorithm cannot bill per leaf (no ``message_leaf_bits``
+    hook, or compression of its own the engine cannot decompose:
+    FedLin)."""
     fn = getattr(algo, "message_leaf_bits", None)
     return None if fn is None else fn(leaf_info)
 

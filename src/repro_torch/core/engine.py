@@ -19,8 +19,11 @@ Composable factories, as in the reference:
 
 * :func:`with_compression` inserts a ``core/compressors.py`` compressor
   into the message path (:class:`MessageCompression`, with a fresh PRNG key
-  per round from the state's step counter); transform memory (the shift
-  ``h`` of ``shift:q8``) rides in an :class:`EngineState` wrapper, and the
+  per round from the state's step counter), a per-leaf
+  ``CompressionPlan``, or the legacy top-k + bf16 error-feedback form
+  (:class:`ErrorFeedbackCompression`); transform memory (the shift ``h``
+  of ``shift:q8``, the error-feedback memory of ``ef:``) rides in an
+  :class:`EngineState` wrapper, and the
   spec's ``server_aggregate`` receives the client's own COMPRESSED message
   as ``msg`` (so FedCET's ``sum_i d_i = 0`` survives) and the exact local
   vector in ``mctx``;
@@ -65,6 +68,7 @@ from repro_torch.core import arena as ar
 from repro_torch.core import prng
 from repro_torch.core import telemetry as tele
 from repro_torch.core.api import GradFn, vmap_grads
+from repro_torch.core.comm import sparsified_up_frac
 from repro_torch.core.topology import parse_topology
 from repro_torch.utils.tree import tree_client_mean, tree_leaves, tree_map
 
@@ -77,8 +81,9 @@ _LATER = {
 
 
 class EngineState(NamedTuple):
-    """Algorithm state plus per-transform extra state (the shift memory of
-    ``shift:`` compressors), then a stateful topology's ``TopoState``. Only
+    """Algorithm state plus per-transform extra state (the shift or
+    error-feedback memory of stateful compressors), then a stateful
+    topology's ``TopoState``. Only
     used when a transform or a stateful topology is attached; bare
     algorithms keep their bare spec state."""
 
@@ -194,6 +199,68 @@ class MessageCompression:
 
 
 @dataclasses.dataclass(frozen=True)
+class ErrorFeedbackCompression:
+    """Legacy message transform (reference ``core/engine.py:401-445``):
+    cross-client top-k sparsification and/or bf16 quantization with
+    optional client-side error feedback, as construction sugar over
+    ``ErrorFeedback(Chain((TopK(k_frac, per_client=False), Bf16())))``.
+    ``up_frac`` keeps the legacy APPROXIMATE accounting ("bf16 halves
+    whatever remains"); ``bits_per_coord`` is the bit-true cost (bf16
+    halves values only, top-k's int32 indices stay), which is what
+    ``CommMeter`` meters."""
+
+    k_frac: float = 1.0
+    quantize: bool = False
+    error_feedback: bool = True
+
+    @property
+    def up_frac(self) -> float:
+        """Uplink fraction vs a dense f32 payload (top-k transmits values
+        + int32 indices; bf16 halves whatever remains)."""
+        frac = sparsified_up_frac(self.k_frac)
+        if self.quantize:
+            frac = min(0.5 * frac, 0.5)
+        return min(frac, 1.0)
+
+    def _compressor(self):
+        from repro_torch.core.compressors import (Bf16, Chain, ErrorFeedback,
+                                                  Identity, TopK)
+
+        stages = []
+        if self.k_frac < 1.0:
+            stages.append(TopK(self.k_frac, per_client=False))
+        if self.quantize:
+            stages.append(Bf16())
+        comp = (stages[0] if len(stages) == 1
+                else Chain(tuple(stages)) if stages else Identity())
+        return ErrorFeedback(comp) if self.error_feedback else comp
+
+    @property
+    def bits_per_coord(self) -> float:
+        return self._compressor().bits_per_coord
+
+    @property
+    def keep_frac(self) -> float:
+        return self._compressor().keep_frac
+
+    @property
+    def index_bits(self) -> float:
+        return self._compressor().index_bits
+
+    @property
+    def value_bits(self) -> float | None:
+        return self._compressor().value_bits
+
+    def init_extra(self, msg_like):
+        """Feedback memory, shaped like the message."""
+        return self._compressor().init_extra(msg_like)
+
+    def apply(self, msg, extra, step: int):
+        del step  # deterministic stack
+        return self._compressor().apply(None, msg, extra)
+
+
+@dataclasses.dataclass(frozen=True)
 class ClientSampling:
     """Per-round Bernoulli client participation policy."""
 
@@ -292,10 +359,16 @@ class RoundEngine:
     def _transforms_bits(self, bits: float = 32.0) -> float:
         """Fold the attached transforms' bit-true cost onto a dense width,
         composing stacked transforms through their (keep_frac, index_bits,
-        value_bits) triple, first-narrowest value width wins."""
+        value_bits) triple, first-narrowest value width wins. A transform
+        with no keep fraction (a per-leaf plan) scales the width by its
+        ``bits_per_coord`` instead."""
         keep, idx, value = 1.0, 0.0, bits
         for t in self.transforms:
-            keep *= t.keep_frac
+            kf = getattr(t, "keep_frac", None)
+            if kf is None:
+                value *= t.bits_per_coord / 32.0
+                continue
+            keep *= kf
             idx += keep * t.index_bits
             if t.value_bits is not None:
                 value = min(value, t.value_bits)
@@ -310,11 +383,18 @@ class RoundEngine:
     def message_leaf_bits(self, leaf_info):
         """EXACT per-leaf uplink wire bits for one client's one UP vector,
         given the message leaf decomposition ``[(name, n_coords), ...]``
-        (``core/comm.py:leaf_info_of``). Never inspects the arena: the
-        decomposition comes from the unpacked parameters either way."""
+        (``core/comm.py:leaf_info_of``): actual kept counts, and a plan's
+        rule per leaf. ``None`` where per-leaf billing does not apply: a
+        spec that overrides ``bits_per_coord`` bills compression of its own
+        the engine cannot decompose (FedLin's round-start top-k). Never
+        inspects the arena: the decomposition comes from the unpacked
+        parameters either way."""
+        if type(self).bits_per_coord is not RoundEngine.bits_per_coord:
+            return None
         from repro_torch.core.compressors import stack_wire_bits
 
-        stack = [t.compressor for t in self.transforms]
+        stack = [t._compressor() if isinstance(t, ErrorFeedbackCompression)
+                 else t.compressor for t in self.transforms]
         return [stack_wire_bits(stack, i, nm, int(n))
                 for i, (nm, n) in enumerate(leaf_info)]
 
@@ -555,35 +635,45 @@ def with_compression(algo: RoundEngine, *, k_frac: float = 1.0,
                      quantize: bool = False,
                      error_feedback: bool | None = None,
                      compressor=None, seed: int = 0) -> RoundEngine:
-    """Compressed uplink for ANY engine algorithm's message path, in the
-    ``compressor=`` form: a ``core/compressors.py`` Compressor or spec
-    string (``"shift:q8"``, ``"q8"``, ``"pq8"``). ``error_feedback=None``
-    leaves unbiased compressors bare (the reference's auto policy). The
-    legacy ``k_frac=`` / ``quantize=`` form (top-k + bf16 under error
-    feedback) comes with a later slice and raises; at its identity setting
-    it is the reference's exact no-op. Transforms stack: the last one
-    attached compresses the output of the previous one."""
+    """Compressed uplink for ANY engine algorithm's message path. Two
+    entry forms, as in the reference:
+
+    * ``compressor=``: a ``core/compressors.py`` Compressor, spec string
+      (``"randk:0.25"``, ``"ef:topk:0.3+bf16"``, ``"shift:q8"``) or
+      CompressionPlan. ``error_feedback=None`` wraps BIASED compressors in
+      ``ErrorFeedback`` and leaves unbiased ones bare; True/False forces
+      either. A plan applies that policy per rule (``parse_plan``), so it
+      is never wrapped whole.
+    * legacy ``k_frac=`` / ``quantize=``: cross-client top-k + bf16 under
+      error feedback (``ErrorFeedbackCompression``; ``error_feedback=None``
+      means True here). ``k_frac >= 1.0 and not quantize`` is an exact
+      no-op.
+
+    Transforms stack: the last one attached compresses the output of the
+    previous one."""
     if compressor is not None:
         if k_frac < 1.0 or quantize:
             raise ValueError(
                 "pass EITHER compressor= or the legacy k_frac=/quantize= "
-                f"kwargs, not both: compressor={compressor!r}, "
-                f"k_frac={k_frac}, quantize={quantize}")
-        from repro_torch.core.compressors import auto_wrap, from_spec
+                "kwargs, not both (the legacy pair would be silently "
+                f"ignored): compressor={compressor!r}, k_frac={k_frac}, "
+                f"quantize={quantize}")
+        from repro_torch.core.compressors import (CompressionPlan, auto_wrap,
+                                                  from_spec)
 
         comp = from_spec(compressor)
         if comp is None:  # the "none" spec: exact no-op
             return algo
-        comp = auto_wrap(comp, error_feedback)
+        if not isinstance(comp, CompressionPlan):
+            comp = auto_wrap(comp, error_feedback)
         t = MessageCompression(comp, seed=seed, index=len(algo.transforms))
         return dataclasses.replace(algo, transforms=algo.transforms + (t,))
     if k_frac >= 1.0 and not quantize:
         return algo
-    raise NotImplementedError(
-        "with_compression(k_frac=/quantize=) (the legacy top-k + bf16 "
-        "error-feedback transform) is not yet ported to PyTorch: it comes "
-        "with a later slice of the port (ROADMAP Queue 1 item 1); pass "
-        "compressor= instead")
+    t = ErrorFeedbackCompression(
+        k_frac=k_frac, quantize=quantize,
+        error_feedback=True if error_feedback is None else error_feedback)
+    return dataclasses.replace(algo, transforms=algo.transforms + (t,))
 
 
 def with_topology(algo: RoundEngine, topology, *, seed: int = 0,

@@ -9,17 +9,22 @@ across clients (Lemma 2), and the x-update corrects the exact local
     x_i'  = v_i - c*a*(C(v_i) - v_bar)
 
 :func:`FedCETCompressed` is sugar for ``with_compression`` over the FedCET
-spec. This slice takes the ``compressor=`` form (``"shift:q8"``, ``"q8"``,
-``"pq8"``); the legacy ``k_frac=`` / ``quantize=`` error-feedback form
-raises until its slice lands.
+spec: the ``compressor=`` form (any ``core/compressors.py`` spec or
+object, ``"randk:0.25"``, ``"ef:topk:0.3+bf16"``, ``"shift:q8"``, or a
+``CompressionPlan``) or the legacy ``k_frac=`` / ``quantize=`` form, the
+legacy cross-client top-k + bf16 with error feedback
+(``ErrorFeedbackCompression``), whose memory ``e_i`` is carried as::
+
+    e_i <- e_i + v_i;  v_i^c = C(e_i);  e_i <- e_i - v_i^c
 """
 
 from __future__ import annotations
 
-from repro_torch.core.engine import RoundEngine, with_compression
+from repro_torch.core.engine import (ErrorFeedbackCompression, RoundEngine,
+                                     with_compression)
 from repro_torch.core.fedcet import FedCET
 
-__all__ = ["FedCETCompressed"]
+__all__ = ["ErrorFeedbackCompression", "FedCETCompressed"]
 
 
 def FedCETCompressed(alpha: float, c: float, tau: int, n_clients: int,
@@ -29,7 +34,8 @@ def FedCETCompressed(alpha: float, c: float, tau: int, n_clients: int,
                      name: str = "fedcet_c", **engine_kw) -> RoundEngine:
     """Compressed-uplink FedCET: ``with_compression`` over the FedCET spec.
     With no compressor (and the legacy knobs at identity) the result IS
-    plain FedCET."""
+    plain FedCET. ``error_feedback=None`` wraps biased compressors only;
+    the legacy form defaults to feedback on."""
     base = FedCET(alpha=alpha, c=c, tau=tau, n_clients=n_clients, name=name,
                   **engine_kw)
     return with_compression(base, k_frac=k_frac, quantize=quantize,

@@ -14,8 +14,11 @@ axis of the engine's message/aggregate seam:
   the root ingests ``groups[-1]`` messages instead of ``n_clients``. With
   ``tier_compression`` the partial means are re-compressed at every
   interior hop (dither keyed from :class:`TopoState` through
-  ``_TIER_KEY_TAG + tier``; stateful ``shift:`` memory per aggregator in
-  ``TopoState.tier``).
+  ``_TIER_KEY_TAG + tier``; the memory of a stateful tier compressor,
+  ``shift:`` or error feedback, per aggregator in ``TopoState.tier``).
+  The tier spec takes the whole ``from_spec`` grammar, through the
+  engine's auto error-feedback policy (``compressors.auto_wrap``:
+  ``topk:0.3`` runs as ``ErrorFeedback(TopK(0.3))``).
 * :class:`Mixing` — no server: client i receives ``sum_j W_ij w_j m_j /
   sum_j W_ij w_j`` for a doubly-stochastic Metropolis matrix ``W`` (ring,
   torus, Erdős–Rényi, static or resampled every aggregation from the
@@ -72,7 +75,7 @@ _TOPO_KEY_TAG = 0x70_70
 #: domain-separation tag (+ tier index) for tier-compression dither keys.
 _TIER_KEY_TAG = 0x71_E5
 
-_COHORT_SLICE = "the cohort slice (ROADMAP Queue 1 item 9)"
+_COHORT_SLICE = "the cohort slice (ROADMAP Queue 1 item 2)"
 
 
 class TopoState(NamedTuple):

@@ -11,18 +11,24 @@ billed bit-true from the attached compressor and topology
 hierarchy its aggregator tiers).
 
 The synchronous round takes the reference's ``compression`` (a
-``core/compressors.py`` spec: ``shift:q8``, ``q8``, ``pq8``),
-``participation``, ``arena``, ``topology`` (a ``core/topology.py`` spec:
-``hier:g8``, ``ring``, ``ring:sparse``, ``torus``, ``er:0.4:t``) and
-``tier_compression``, composed by ``configs/base.py:FedScenario``, and its
+``core/compressors.py`` spec: ``shift:q8``, ``q8``, ``randk:0.25``,
+``ef:topk:0.3+bf16``, ...) or ``compression_plan`` (per-leaf
+``pattern:spec`` rules, ``embed*:q12,ln*:bf16,*:shift:q6``, or a ready
+``CompressionPlan``, billed exactly per leaf) with ``plan_adapt`` (> 1:
+tighten the plan one step each time telemetry's ``compress_err`` shrinks
+by that factor, swapped in at a segment boundary with the state carried
+over; needs ``telemetry``), ``participation``, ``arena``, ``topology`` (a
+``core/topology.py`` spec: ``hier:g8``, ``ring``, ``ring:sparse``,
+``torus``, ``er:0.4:t``) and ``tier_compression``, composed by
+``configs/base.py:FedScenario``, and its
 in-round telemetry (``telemetry``, a ``core/telemetry.py`` sink spec such
 as ``jsonl:run.jsonl,hist:48``) with the profiler window
 (``trace_rounds``, ``trace_dir``). With ``ckpt_dir`` the full round state
 is saved every 50 rounds (``checkpoint/ckpt.py``, the reference's
 ``.npz`` layout; like the reference, the run saves and does not resume:
 ``fed/trainer.py:FedTrainer.maybe_resume`` resumes). The other options
-(delay, cohort, compression plans) raise "not yet ported" when set to
-anything but their default. The mesh launcher (``make_plan``,
+(delay, cohort) raise "not yet ported" when set to anything but their
+default. The mesh launcher (``make_plan``,
 ``lower_train_step``) waits for a multi-GPU slice.
 
 Run as a script:
@@ -33,10 +39,14 @@ Run as a script:
     python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
         --clients 8 --batch 4 --topology ring:sparse --arena \
         --telemetry jsonl:run.jsonl,hist:48 --trace-rounds 3:4
+    python -m repro_torch.launch.train --arch fedlm-100m --steps 20 \
+        --device cpu --compression-plan "embed*:q12,ln*:bf16,*:shift:q6" \
+        --plan-adapt 10 --telemetry csv:m.csv
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
@@ -47,6 +57,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import FedScenario
 from repro_torch.core import telemetry as tele
 from repro_torch.core.comm import CommMeter, comm_bits_per_round, leaf_info_of
+from repro_torch.core.compressors import AdaptivePlan, CompressionPlan
 from repro_torch.core.engine import make_round_runner, scan_segments
 from repro_torch.core.fedcet import FedCET
 from repro_torch.data.synthetic import make_hetero_lm_dataset
@@ -62,9 +73,9 @@ SCENARIO_DEFAULTS = {
     "trace_dir": "profile_trace", "ckpt_dir": None,
 }
 #: the options the port runs; the others accept their default only.
-PORTED = ("compression", "participation", "arena", "topology",
-          "tier_compression", "telemetry", "trace_rounds", "trace_dir",
-          "ckpt_dir")
+PORTED = ("compression", "compression_plan", "plan_adapt", "participation",
+          "arena", "topology", "tier_compression", "telemetry",
+          "trace_rounds", "trace_dir", "ckpt_dir")
 #: rounds between the checkpoints of a run with ``ckpt_dir``.
 CKPT_EVERY = 50
 
@@ -78,11 +89,15 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     """End-to-end FedCET LM training on ``device`` (``cuda`` unless the
     caller passes another; with no card and no explicit device it raises).
 
-    ``scenario`` takes ``compression``, ``participation``, ``arena``,
-    ``topology``, ``tier_compression``, ``telemetry``, ``trace_rounds``,
-    ``trace_dir`` and ``ckpt_dir`` (see the module docstring); the
-    reference's other options raise "not yet ported" unless at their
-    default.
+    ``scenario`` takes ``compression``, ``compression_plan``,
+    ``plan_adapt``, ``participation``, ``arena``, ``topology``,
+    ``tier_compression``, ``telemetry``, ``trace_rounds``, ``trace_dir``
+    and ``ckpt_dir`` (see the module docstring); the reference's other
+    options raise "not yet ported" unless at their default. With
+    ``plan_adapt > 1`` an ``AdaptivePlan`` reads the last round's
+    ``compress_err`` at each segment end; when it tightens, the new plan
+    replaces the attached one, the runner is rebuilt and the state carries
+    over unchanged (a ``plan_adapt`` event goes to the sinks).
 
     The rounds run through ``engine.make_round_runner`` in segments that
     end at every logged round, at the edges of the ``trace_rounds``
@@ -129,6 +144,7 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     params = model.init(torch.Generator(device=device).manual_seed(seed),
                         device=device)
     algo = FedScenario(compression=opt["compression"],
+                       compression_plan=opt["compression_plan"],
                        participation=opt["participation"],
                        topology=opt["topology"],
                        tier_compression=opt["tier_compression"],
@@ -171,6 +187,18 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
 
     meter = CommMeter.for_params(params, algo=algo, n_clients=n_clients)
     bits = comm_bits_per_round(algo, meter.n_params, n_clients, leaf_info)
+    adaptive = None
+    if opt["plan_adapt"] and opt["plan_adapt"] > 1.0:
+        plans = [t.compressor for t in algo.transforms
+                 if isinstance(getattr(t, "compressor", None),
+                               CompressionPlan)]
+        if not plans:
+            raise ValueError("plan_adapt needs a compression_plan attached")
+        if telemetry is None:
+            raise ValueError("plan_adapt reads the telemetry compress_err "
+                             "residual; pass --telemetry")
+        adaptive = AdaptivePlan(plan=plans[-1],
+                                factor=float(opt["plan_adapt"]))
     # the expected participant count when telemetry is off; with it on,
     # the line reports the in-round count.
     expected_active = int(round(n_clients * min(opt["participation"], 1.0)))
@@ -180,7 +208,8 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
             config={"arch": arch, "steps": steps, "tau": tau,
                     "n_clients": n_clients, "batch": batch,
                     "seq_len": seq_len, "compression": opt["compression"],
-                    "compression_plan": "none", "plan_adapt": 0.0,
+                    "compression_plan": str(opt["compression_plan"]),
+                    "plan_adapt": opt["plan_adapt"],
                     "participation": opt["participation"], "delay": "none",
                     "stale_policy": "last", "topology": opt["topology"],
                     "tier_compression": opt["tier_compression"],
@@ -211,6 +240,28 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
                        leaf_bits=meter.leaf_bits)
         for _ in range(r, stop + 1):
             meter.tick_round(algo)
+        if adaptive is not None and tel_series is not None \
+                and "compress_err" in tel_series:
+            new_plan = adaptive.update(
+                float(tel_series["compress_err"][-1]))
+            if new_plan is not None:
+                # the tightened plan keeps every wrapper, so the extras keep
+                # their shapes and the state carries into the new runner.
+                algo = _swap_plan(algo, new_plan)
+                runner = make_round_runner(algo, grad_fn,
+                                           metric_fn=round_loss,
+                                           metric_with_batch=True)
+                meter = dataclasses.replace(
+                    CommMeter.for_params(params, algo=algo,
+                                         n_clients=n_clients),
+                    rounds=meter.rounds, bytes_up=meter.bytes_up,
+                    bytes_down=meter.bytes_down)
+                bits = comm_bits_per_round(algo, meter.n_params, n_clients,
+                                           leaf_info)
+                if sinks:
+                    tele.emit_event(sinks, {
+                        "event": "plan_adapt", "round": stop,
+                        "bits_per_round": bits["up_bits"]})
         losses = losses.tolist()
         active = (None if tel_series is None
                   or "participating" not in tel_series
@@ -233,6 +284,14 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     trace.close()
     tele.close_sinks(sinks)
     return history
+
+
+def _swap_plan(algo, plan):
+    """``algo`` with ``plan`` in place of its attached CompressionPlan."""
+    ts = tuple(dataclasses.replace(t, compressor=plan)
+               if isinstance(getattr(t, "compressor", None), CompressionPlan)
+               else t for t in algo.transforms)
+    return dataclasses.replace(algo, transforms=ts)
 
 
 def mean_client_loss(client_losses, params, batches) -> torch.Tensor:
@@ -267,7 +326,21 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10,
                     help="print a per-round summary line every k rounds")
     ap.add_argument("--compression", default="none",
-                    help="uplink compressor spec: none | q8 | pq8 | shift:q8")
+                    help="uplink compressor spec: none | bf16 | topk:0.3 | "
+                         "randk:0.25 | nat | q8 | pq8 | shift:q8 | "
+                         "randk:0.5+q8 | ef:...")
+    ap.add_argument("--compression-plan", default="none",
+                    help="per-leaf uplink compression plan: comma-separated"
+                         " first-match-wins pattern:spec rules over leaf "
+                         "paths (glob or flatten-order leaf index), e.g. "
+                         "'embed*:q12,ln*:bf16,*:shift:q6'; mutually "
+                         "exclusive with --compression; billed exactly per "
+                         "leaf")
+    ap.add_argument("--plan-adapt", type=float, default=0.0,
+                    help="> 1: tighten the plan one step each time the "
+                         "telemetry compress_err residual shrinks by this "
+                         "factor (needs --compression-plan and "
+                         "--telemetry)")
     ap.add_argument("--participation", type=float, default=1.0,
                     help="per-round Bernoulli client participation rate")
     ap.add_argument("--arena", action="store_true",

@@ -122,7 +122,7 @@ TRAJECTORIES = [("ring", None, None), ("ring:sparse", None, None),
                 ("torus:sparse", None, None), ("er:0.5", None, None),
                 ("er:0.5:t:sparse", None, None), ("hier:g5", None, None),
                 ("hier:4x2", None, None), ("hier:g5", "shift:q8", None),
-                ("ring:sparse", None, "q8_part")]
+                ("hier:g5", "topk:0.3", None), ("ring:sparse", None, "q8_part")]
 
 
 @pytest.mark.parametrize("spec,tier,extra", TRAJECTORIES,
@@ -299,8 +299,19 @@ def test_sparse_spec_grammar():
                       .tier_compression, Shifted)
     assert parse("hier:g5", N, tier_compression="none") \
         == parse("hier:g5", N)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        parse("hier:g5", N, tier_compression="topk:0.3")
+    # a biased tier spec gets the engine's auto error feedback, in both
+    # packages alike.
+    from repro.core.compressors import ErrorFeedback as JEF
+    from repro.core.compressors import TopK as JTopK
+
+    from repro_torch.core.compressors import ErrorFeedback, TopK
+
+    tier = parse("hier:g5", N, tier_compression="topk:0.3").tier_compression
+    jtier = JT.parse_topology("hier:g5", N,
+                              tier_compression="topk:0.3").tier_compression
+    assert tier == ErrorFeedback(TopK(0.3)) and jtier == JEF(JTopK(0.3))
+    assert (tier.stateful, tier.bits_per_coord) == (jtier.stateful,
+                                                    jtier.bits_per_coord)
     _both_raise(lambda: T.Hierarchical((5,), tier_compression="q8"),
                 lambda: JT.Hierarchical((5,), tier_compression="q8"))
 

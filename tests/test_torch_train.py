@@ -316,3 +316,60 @@ def test_topology_training_on_cpu(capsys):
     with pytest.raises(ValueError, match="tier_compression"):
         run_training("fedlm-100m", steps=1, n_clients=4, device="cpu",
                      topology="ring", tier_compression="q8")
+
+
+def test_compression_plan_with_adaptive_tightening_on_cpu(tmp_path, capsys):
+    """``--compression-plan`` / ``--plan-adapt`` through ``run_training``:
+    the plan bills per leaf (``shift:q6`` on every leaf but ``embed``'s 12
+    bits), and the adaptive schedule tightens at the rounds where the
+    reference's ``AdaptivePlan`` does on the same ``compress_err`` series
+    (read from the run's own JSONL, one segment per round as
+    ``log_every=1`` makes them), to the same plan. Both ``ValueError``s
+    of the reference stand."""
+    import json
+
+    import jax
+
+    from repro.core.compressors import AdaptivePlan as JAdaptive
+    from repro.core.compressors import parse_plan as jparse
+
+    from repro_torch.core.comm import leaf_info_of
+
+    spec = "embed*:q12,ln*:bf16,*:shift:q6"
+    path = tmp_path / "t.jsonl"
+    hist = run_training("fedlm-100m", steps=12, n_clients=2, batch=1,
+                        seq_len=8, device="cpu", log_every=1,
+                        compression_plan=spec, plan_adapt=10.0,
+                        telemetry=f"jsonl:{path}")
+    assert all(np.isfinite(hist["loss"]))
+    events = [json.loads(line) for line in open(path)]
+    assert events[0]["config"]["compression_plan"] == spec
+    assert events[0]["config"]["plan_adapt"] == 10.0
+    errs = [e["compress_err"] for e in events if e["event"] == "round"]
+    assert len(errs) == 12
+    adapted = [e["round"] for e in events if e["event"] == "plan_adapt"]
+    sched = JAdaptive(plan=jparse(spec), factor=10.0)
+    want = [r for r, err in enumerate(errs)
+            if sched.update(err) is not None]
+    assert adapted == want and adapted, (adapted, want, errs)
+    # the first round's bits: embed 12, ln* bf16 16, the rest 6 per coord
+    params = build_model(get_config("fedlm-100m").reduced()).init(
+        torch.Generator())
+    info = leaf_info_of(params)
+    per = [12 if nm == "embed" else 16 if "/ln" in f"/{nm}" else 6
+           for nm, _ in info]
+    bits0 = 2 * sum(b * n for b, (_, n) in zip(per, info))
+    assert f"round     0  loss" in capsys.readouterr().out
+    assert hist["comm_bytes"][0] == int(bits0 / 8) \
+        + int(2 * hist["n_params"] * 32 / 8)
+    assert jax.tree.leaves(sched.plan.rules) is not None
+    with pytest.raises(ValueError, match="compression_plan"):
+        run_training("fedlm-100m", steps=1, device="cpu", plan_adapt=10.0,
+                     telemetry=f"jsonl:{tmp_path / 'u.jsonl'}")
+    with pytest.raises(ValueError, match="telemetry"):
+        run_training("fedlm-100m", steps=1, device="cpu",
+                     compression_plan=spec, plan_adapt=10.0)
+    main(["--arch", "fedlm-100m", "--steps", "1", "--clients", "2",
+          "--batch", "1", "--seq-len", "8", "--device", "cpu",
+          "--compression-plan", spec])
+    assert "final loss:" in capsys.readouterr().out
