@@ -70,6 +70,18 @@ of the JAX package. Phases, one JSON line each:
                FedCET on the arena with the population sketches (the sketch
                kernel in float64, 400 rounds: < 1e-9, Lemma 2 residual
                <= 1e-6, telemetry on equal to off bit for bit);
+4b. staleness — ``benchmarks/staleness_sweep.py``'s bounds in float64 on
+               the paper's problem (1500 rounds): FedCET under ``rr:2``
+               with ``drop`` and ``last`` and under ``fixed:2`` with
+               ``poly:1`` < 1e-9, under ``rr:2`` with ``poly:1`` > 1e-4;
+               SCAFFOLD under ``rr:2`` with ``last`` > 1e-1, with ``drop``
+               < 1e-2;
+4c. cohort   — ``benchmarks/cohort_scaling.py`` in float64 (cohort 256,
+               ``block``, dim 8): the gather and dense lowerings within
+               1e-12 after 4 rounds for FedCET, FedAvg, SCAFFOLD and
+               FedTrack at N 1000; the gather round's ms at N 1e3..1e6
+               (growth from 1e4 to 1e6 at most 1.5x) and the dense round's
+               at N 1e3..1e5 (printed only);
 5. parity    — one FedCET round of the reduced model on the card and on
                the CPU from the same parameters and tokens;
 6. prng      — the threefry dither of the whole fedlm-100m model, timed;
@@ -106,7 +118,20 @@ of the JAX package. Phases, one JSON line each:
                parameters (``absmax``, ``shift`` wrappers): exactly
                fedcet_v 11, fedcet_comm4 6 and one stochastic_quantize per
                quantized leaf per aggregation, no fedcet_round_tail (a plan
-               is not ``Shifted(StochasticQuant)``). Per round: loss, time,
+               is not ``Shifted(StochasticQuant)``); (L) B under ``rr:2``
+               stragglers with the ``last`` policy: exactly fedcet_v 11,
+               stochastic_quantize_rows 6, fedcet_comm4 6 and no
+               fedcet_round_tail (a delayed aggregation never fuses), the
+               uplink billed at exactly half of B's bits; (K) a 16-client
+               store at batch 4 with a ``block:4`` cohort, through the
+               engine: init (dense, 16 clients) exactly fedcet_v 1 and
+               fedcet_round_tail 1, the 5 rounds exactly fedcet_v 10,
+               stochastic_quantize_rows 5 and fedcet_comm4 5, each round
+               writing the store in place (the same ``data_ptr()``) and
+               leaving the 12 other rows bitwise unchanged, its first
+               round's cohort rows held against a plain 4-client engine
+               on the same rows and tokens, with its gather and scatter
+               timed and the peak GB. Per round: loss, time,
                the Lemma 2 residual and where the time goes (gradients,
                each kernel, the dither, the scale pass, pack/unpack, the
                topology's reduce, the loss, the telemetry and its sketch
@@ -989,6 +1014,145 @@ def _quadratic_topologies(problem, base):
     return launches
 
 
+#: ``benchmarks/staleness_sweep.py``'s checks on the card (float64, the
+#: paper's problem drawn on the card, 1500 rounds, the script's bounds):
+#: (algorithm, delay, policy) -> ("<" or ">", bound on the final error).
+STALENESS_CELLS = {
+    ("fedcet", "rr:2", "drop"): ("<", 1e-9),
+    ("fedcet", "rr:2", "last"): ("<", 1e-9),
+    ("fedcet", "fixed:2", "poly:1"): ("<", 1e-9),
+    ("fedcet", "rr:2", "poly:1"): (">", 1e-4),
+    ("scaffold", "rr:2", "last"): (">", 1e-1),
+    ("scaffold", "rr:2", "drop"): ("<", 1e-2),
+}
+STALENESS_ROUNDS = 1500
+
+
+def phase_staleness():
+    """FedCET and SCAFFOLD under delayed uplinks on the card in float64:
+    FedCET exact under ``drop`` and ``last`` at rr:2 and under ``poly:1``
+    at fixed:2 (uniform ages), floored by ``poly:1`` at rr:2; SCAFFOLD's
+    delta pair broken by ``last`` and convergent under ``drop``."""
+    from repro_torch.core import FedCET, Scaffold, max_weight_c
+    from repro_torch.core.engine import with_delay
+    from repro_torch.core.lr_search import lr_search
+    from repro_torch.core.simulate import simulate_quadratic
+    from repro_torch.data.quadratic import make_quadratic_problem
+    from repro_torch.kernels import library as L
+
+    problem = make_quadratic_problem(0, device="cuda")
+    tau = 2
+    alpha = lr_search(problem.mu, problem.L, tau)
+    algos = {"fedcet": FedCET(alpha=alpha, c=max_weight_c(problem.mu, alpha),
+                              tau=tau, n_clients=problem.n_clients),
+             "scaffold": Scaffold(alpha_l=1.0 / (81 * tau * problem.L),
+                                  tau=tau, n_clients=problem.n_clients)}
+    for (name, delay, pol), (op, bound) in STALENESS_CELLS.items():
+        L.reset_launches()
+        t0 = time.perf_counter()
+        res = simulate_quadratic(with_delay(algos[name], delay, policy=pol),
+                                 problem, STALENESS_ROUNDS, device="cuda")
+        err = res.final_error
+        emit({"phase": "staleness", "algo": name, "delay": delay,
+              "policy": pol, "rounds": STALENESS_ROUNDS, "final_error": err,
+              "bound": f"{op} {bound}", "seconds": time.perf_counter() - t0,
+              "launches": {k: v for k, v in L.LAUNCHES.items() if v}})
+        check(err < bound if op == "<" else err > bound,
+              f"staleness {name} {delay} {pol}: final error {err}, "
+              f"bound {op} {bound}")
+
+
+#: ``benchmarks/cohort_scaling.py`` on the card: cohort 256, ``block``,
+#: dim 8, tau 2, one measurement a client.
+COHORT_SIZE, COHORT_DIM = 256, 8
+COHORT_NS_GATHER = (1_000, 10_000, 100_000, 1_000_000)
+COHORT_NS_DENSE = (1_000, 10_000, 100_000)
+COHORT_GROWTH_MAX = 1.5   # gather round time, N 1e4 -> 1e6
+
+
+def _cohort_algos(n):
+    from repro_torch.core import FedAvg, FedCET, FedTrack, Scaffold
+
+    return {"fedcet": FedCET(alpha=0.02, c=0.3, tau=2, n_clients=n),
+            "fedavg": FedAvg(alpha=0.05, tau=2, n_clients=n),
+            "scaffold": Scaffold(alpha_l=0.02, tau=2, n_clients=n),
+            "fedtrack": FedTrack(alpha=0.02, tau=2, n_clients=n)}
+
+
+def _round_ms(algo, problem, rounds=10, batches_n=3):
+    """Best of ``batches_n`` batches of ``rounds`` rounds, ms a round
+    (host clock, synchronized), after two warm-up rounds."""
+    grad = torch.func.grad(problem.client_loss)
+    batches = problem.stacked_batches(2)
+    state = algo.init(grad, torch.zeros(problem.dim, dtype=torch.float64,
+                                        device="cuda"),
+                      {k: v[0] for k, v in batches.items()})
+    for _ in range(2):
+        state = algo.round(grad, state, batches)
+    best = math.inf
+    for _ in range(batches_n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            state = algo.round(grad, state, batches)
+        torch.cuda.synchronize()
+        best = min(best, 1e3 * (time.perf_counter() - t0) / rounds)
+    return best
+
+
+def phase_cohort():
+    """The cohort lowerings and their scaling on the card in float64:
+    gather and dense agree within 1e-12 after 4 rounds for FedCET,
+    FedAvg, SCAFFOLD and FedTrack at N 1000; the gather round's time at
+    N 1e3..1e6 (its growth from 1e4 to 1e6 at most 1.5x) and the dense
+    round's at N 1e3..1e5 (printed only)."""
+    from repro_torch.core.engine import CohortSpec, run_rounds, with_cohort
+    from repro_torch.data.quadratic import make_quadratic_problem
+    from repro_torch.utils.tree import tree_leaves
+
+    def problem(n):
+        return make_quadratic_problem(0, n_clients=n, n_measurements=1,
+                                      dim=COHORT_DIM, device="cuda")
+
+    def spec(lowering):
+        return CohortSpec(size=COHORT_SIZE, selector="block",
+                          lowering=lowering)
+
+    prob = problem(1_000)
+    grad = torch.func.grad(prob.client_loss)
+    batches = prob.stacked_batches(2)
+    gaps = {}
+    for name, algo in _cohort_algos(1_000).items():
+        finals = []
+        for lowering in ("gather", "dense"):
+            a = with_cohort(algo, spec(lowering))
+            s = a.init(grad, torch.zeros(COHORT_DIM, dtype=torch.float64,
+                                         device="cuda"),
+                       {k: v[0] for k, v in batches.items()})
+            finals.append(run_rounds(a, grad, s, batches, rounds=4)[0])
+        gaps[name] = max(float((x - y).abs().max()) for x, y in zip(
+            *(tree_leaves(f) for f in finals)) if isinstance(x, torch.Tensor))
+    emit({"phase": "cohort", "check": "lowerings", "n": 1_000,
+          "cohort": COHORT_SIZE, "rounds": 4, "max_abs_gap": gaps})
+    check(all(g <= 1e-12 for g in gaps.values()),
+          f"cohort lowerings differ: {gaps}")
+    times = {}
+    for n in COHORT_NS_GATHER:
+        times[f"gather/n{n}"] = _round_ms(
+            with_cohort(_cohort_algos(n)["fedcet"], spec("gather")),
+            problem(n))
+    for n in COHORT_NS_DENSE:
+        times[f"dense/n{n}"] = _round_ms(_cohort_algos(n)["fedcet"],
+                                         problem(n))
+    growth = times["gather/n1000000"] / times["gather/n10000"]
+    emit({"phase": "cohort", "check": "scaling", "ms_per_round": times,
+          "gather_growth_1e4_to_1e6": growth,
+          "dense_growth_1e4_to_1e5": (times["dense/n100000"]
+                                      / times["dense/n10000"])})
+    check(growth <= COHORT_GROWTH_MAX,
+          f"gather round time grew {growth}x from N 1e4 to 1e6")
+
+
 def phase_parity():
     """One round of the reduced model on the card (kernels, cuBLAS) and on
     the CPU (plain versions) from the same parameters and tokens. Held to
@@ -1055,7 +1219,8 @@ class _Timeline:
     """CUDA-event intervals of the gradient evaluations, the kernel
     wrappers, the dither draws, the scale pass, pack/unpack, the
     topology's reduce, the logged loss and the telemetry's end-of-round
-    finalize, grouped per training round (closed by the round callback).
+    finalize, and a cohort round's gather from and scatter into the client
+    store, grouped per training round (closed by the round callback).
     ``topology_ms`` CONTAINS ``gossip_ms`` (the kernel inside the sparse
     reduce) and ``telemetry_ms`` contains ``sketch_ms`` (the sketch
     wrapper); the other intervals do not nest. The in-round telemetry
@@ -1063,7 +1228,7 @@ class _Timeline:
 
     KEYS = ("grad", "fedcet_v", "fedcet_comm", "quantize", "round_tail",
             "dither", "scale", "pack", "topology", "gossip", "loss",
-            "telemetry", "sketch")
+            "telemetry", "sketch", "gather", "scatter")
     NESTED = ("gossip", "sketch")
 
     def __init__(self):
@@ -1111,7 +1276,9 @@ def _instrument(timeline):
                (topology.Hierarchical, "reduce_and_advance", "topology"),
                (train, "mean_client_loss", "loss"),
                (telemetry.Telemetry, "finalize", "telemetry"),
-               (ops, "telemetry_sketch", "sketch")]
+               (ops, "telemetry_sketch", "sketch"),
+               (engine, "gather_clients", "gather"),
+               (engine, "scatter_clients", "scatter")]
     saved = []
     for mod, name, how in patches:
         real = getattr(mod, name)
@@ -1167,6 +1334,15 @@ PLAN_PATH = "P_plan_arena"
 PATHS[PLAN_PATH] = ({"arena": True},
                     ("fedcet_v", "stochastic_quantize", "fedcet_comm4"),
                     TRAIN)
+#: path L: B's scenario under round-robin stragglers (``rr:2``: 2 of the 4
+#: clients miss each round) with the ``last`` stale policy. A delayed round
+#: never takes the fused tail: per aggregation (init included) the rows
+#: quantizer and the 4-op pair on the buffer's weighted mean.
+DELAY_PATH = "L_shift_q8_arena_rr2_last"
+PATHS[DELAY_PATH] = ({"compression": "shift:q8", "arena": True,
+                      "delay": "rr:2", "stale_policy": "last"},
+                     ("fedcet_v", "stochastic_quantize_rows",
+                      "fedcet_comm4"), TRAIN)
 COMPARED = ("E_ring_sparse_arena", "F_ring_dense_arena",
             "E2_ring_sparse_arena_repeat", TELEMETRY_PATH)
 _E_LAUNCHES = {"fedcet_v": 11, "fedcet_comm": 6, "gossip_reduce": 6}
@@ -1176,7 +1352,10 @@ MAIN_PATH_LAUNCHES = {"B_shift_q8_arena": {"fedcet_v": 11,
                       "E2_ring_sparse_arena_repeat": _E_LAUNCHES,
                       # 5 rounds x (the d_norm and drift sketches).
                       TELEMETRY_PATH: {**_E_LAUNCHES,
-                                       "telemetry_sketch": 10}}
+                                       "telemetry_sketch": 10},
+                      DELAY_PATH: {"fedcet_v": 11,
+                                   "stochastic_quantize_rows": 6,
+                                   "fedcet_comm4": 6}}
 
 
 def _allocated_plan(params, **allocate_kw):
@@ -1285,6 +1464,7 @@ def _train_path(name, scenario, expected, config):
     check(len(hist["loss"]) == config["steps"], f"{name}: not 5 rounds")
     check(all(launches[f] > 0 for f in expected),
           f"{name}: a kernel of the path never launched: {launches}")
+    final["comm_bytes"] = hist["comm_bytes"]
     return launches, hist["loss"], final, timeline.rounds
 
 
@@ -1380,7 +1560,7 @@ def phase_train():
     # at full scale: a reduce that returned m unmixed leaves d = 0, a wrong
     # table moves it by O(1). So E's final d is held against F's.
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
-    launches, losses, finals, rounds = {}, {}, {}, {}
+    launches, losses, finals, rounds, comm = {}, {}, {}, {}, {}
     for name, (scenario, expected, config) in PATHS.items():
         if name == PLAN_PATH:
             scenario = {**scenario, **_plan_scenario()}
@@ -1388,6 +1568,7 @@ def phase_train():
             name, scenario, expected, config)
         if name in COMPARED:  # on the host: the next path's peak stays its
             finals[name] = fin
+        comm[name] = fin["comm_bytes"]
         del fin
         torch.cuda.empty_cache()
     e, e2, h = (finals[p] for p in ("E_ring_sparse_arena",
@@ -1432,7 +1613,219 @@ def phase_train():
     check(rel <= 1e-4, f"dense and sparse ring losses differ by {rel}")
     check(d_gap <= D_GAP_MAX, f"dense and sparse ring final drift differ by "
                               f"{d_gap} (relative)")
+    _check_delay_bits(comm)
+    launches[COHORT_PATH] = _cohort_path()
     return launches
+
+
+def _check_delay_bits(comm):
+    """L bills half of B's uplink bits (rr:2 of 4 clients: duty 0.5) and
+    all of its downlink: per round, bit-true from the compressor stack's
+    per-leaf widths (``comm_bits_per_round``), and in the bytes the run's
+    meter counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedScenario
+    from repro_torch.core import FedCET
+    from repro_torch.core.comm import (CommMeter, comm_bits_per_round,
+                                       leaf_info_of)
+    from repro_torch.models import build_model
+
+    params = build_model(get_config("fedlm-100m")).init(
+        torch.Generator().manual_seed(0))  # on the host: names and sizes
+    info, nc = leaf_info_of(params), TRAIN["n_clients"]
+    out = {}
+    for p in ("B_shift_q8_arena", DELAY_PATH):
+        algo = FedScenario(**PATHS[p][0]).apply(
+            FedCET(alpha=ALPHA, c=C, tau=TRAIN["tau"], n_clients=nc))
+        meter = CommMeter.for_params(params, algo=algo, n_clients=nc)
+        metered = []
+        for _ in range(TRAIN["steps"]):
+            meter.tick_round(algo)
+            metered.append(meter.total)
+        out[p] = (comm_bits_per_round(algo, meter.n_params, nc, info),
+                  meter, metered)
+    (b_bits, b_meter, _), (l_bits, l_meter, l_want) = (
+        out["B_shift_q8_arena"], out[DELAY_PATH])
+    ratio = l_bits["up_bits"] / b_bits["up_bits"]
+    emit({"phase": "train", "check": "L_bits", "up_bits_L_over_B": ratio,
+          "up_bits_B": b_bits["up_bits"], "up_bits_L": l_bits["up_bits"],
+          "down_bits_equal": l_bits["down_bits"] == b_bits["down_bits"],
+          "bytes_up_5_rounds_B": b_meter.bytes_up,
+          "bytes_up_5_rounds_L": l_meter.bytes_up,
+          "comm_bytes_B": comm["B_shift_q8_arena"],
+          "comm_bytes_L": comm[DELAY_PATH]})
+    check(ratio == 0.5, f"L bills {ratio} of B's uplink bits, not 0.5")
+    check(l_bits["down_bits"] == b_bits["down_bits"],
+          "L's downlink differs from B's")
+    check(comm[DELAY_PATH] == l_want,
+          f"L's run metered {comm[DELAY_PATH]}, expected {l_want}")
+    check(abs(2 * l_meter.bytes_up - b_meter.bytes_up)
+          <= 2 * TRAIN["steps"], "L's uplink bytes are not half of B's")
+
+
+#: path K: fedlm-100m at full width over a 16-client store, a ``block:4``
+#: cohort per round, ``shift:q8`` on the arena, batch 4 a client (the
+#: store's x, d and shift memory take 3 x 16 x 428 MB; the dense 16-client
+#: warm-up at init comes on top).
+COHORT_PATH = "K_cohort_block4_of16_shift_q8_arena"
+COHORT_RUN = dict(n_clients=16, cohort="block:4", batch=4, seq_len=128,
+                  tau=2, steps=5)
+#: K's exact launches. Init is dense and synchronous over all 16 clients
+#: on the arena with no delay or topology, so the reference's guard lets
+#: FedCET's fused tail take its aggregation; the 5 cohort rounds never
+#: do (a cohort round has its own phase B): per round the triad twice on
+#: the 4 gathered rows, one rows quantize and one 4-op pair.
+K_INIT_LAUNCHES = {"fedcet_v": 1, "fedcet_round_tail": 1}
+K_ROUND_LAUNCHES = {"fedcet_v": 10, "stochastic_quantize_rows": 5,
+                    "fedcet_comm4": 5}
+#: K's first round against a plain 4-client engine on the cohort's rows
+#: and tokens (gathered here, not by the engine): phase A runs the same
+#: code at the same shapes, phase B the fused tail instead of the rows
+#: quantize and the 4-op pair, so the two differ by float32 rounding of
+#: the client mean. x and the shift memory are held relative to their own
+#: norms, d relative to c ||x|| (the Lemma 2 scale).
+K_PLAIN_MAX = {"x": 1e-6, "h": 1e-6, "d": INVARIANT_MAX}
+
+
+def _cohort_path():
+    """Path K through the engine (``FedScenario.apply``, ``init``,
+    ``round``), checking each round: the store's arena tensors keep their
+    ``data_ptr()`` (the scatter is in place), the 12 rows outside the
+    round's cohort are bitwise unchanged in x, d and the shift memory,
+    the Lemma 2 residual, a finite cohort loss. After the rounds, the
+    first round's cohort rows are held against a plain 4-client engine
+    run from the same rows and tokens (``K_PLAIN_MAX``). Emits each
+    round's time and split (gather, gradients, dither, kernels, scatter),
+    the peak GB, and the exact launches of init and of the rounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedScenario
+    from repro_torch.core import FedCET
+    from repro_torch.core.arena import Arena
+    from repro_torch.data.synthetic import make_hetero_lm_dataset
+    from repro_torch.kernels import library as L
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_map
+
+    run = COHORT_RUN
+    n, tau = run["n_clients"], run["tau"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(get_config("fedlm-100m"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    algo = FedScenario(compression="shift:q8", arena=True,
+                       cohort=run["cohort"]).apply(
+        FedCET(alpha=ALPHA, c=C, tau=tau, n_clients=n, x64=False))
+    ds = make_hetero_lm_dataset(model.cfg.vocab_size, n, run["seq_len"],
+                                run["batch"], heterogeneity=0.8, seed=0,
+                                device="cuda")
+    grad_fn = torch.func.grad(model.loss)
+    client_losses = torch.func.vmap(model.loss)
+    L.reset_launches()
+    t0 = time.perf_counter()
+    state = algo.init(grad_fn, params, tree_map(
+        lambda b: b[0], {"tokens": ds.sample_round(0, tau)}))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    del params
+    init_launches = {k: v for k, v in L.LAUNCHES.items() if v}
+    init_peak = torch.cuda.max_memory_allocated()
+
+    def store(st):
+        return [a.data for a in (st.inner.x, st.inner.d, st.extras[0])]
+
+    def rows_of(tree, idx):  # the cohort's rows of every per-client leaf
+        return tree_map(lambda a: a[idx] if isinstance(a, torch.Tensor)
+                        and a.dim() >= 1 and a.shape[0] == n else a, tree)
+
+    check(all(isinstance(a, Arena) for a in (state.inner.x, state.inner.d,
+                                             state.extras[0])),
+          "K: the store is not on the arena")
+    timeline = _Timeline()
+    undo = _instrument(timeline)
+    L.reset_launches()
+    norm = lambda t: math.sqrt(float(t.double().pow(2).sum()))  # noqa: E731
+    try:
+        for r in range(run["steps"]):
+            batches = {"tokens": ds.sample_round(r, tau)}
+            idx = algo.cohort.indices(state.inner.t, tau, n, device="cuda")
+            out = torch.ones(n, dtype=torch.bool, device="cuda")
+            out[idx] = False
+            before = store(state)
+            ptrs = [a.data_ptr() for a in before]
+            kept = [a[out] for a in before]
+            if r == 0:  # copies: the round consumes the store
+                plain_in = (rows_of(state, idx),
+                            {"tokens": batches["tokens"][:, idx]})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = algo.round(grad_fn, state, batches)
+            torch.cuda.synchronize()
+            round_s = time.perf_counter() - t0
+            timeline.close_round()
+            after = store(state)
+            if r == 0:
+                cohort_out = [a[idx] for a in after]
+            in_place = [a.data_ptr() for a in after] == ptrs
+            unchanged = all(torch.equal(k.view(torch.int32),
+                                        a[out].view(torch.int32))
+                            for k, a in zip(kept, after))
+            del kept, before
+            d, x = state.inner.d.data, state.inner.x.data
+            resid = norm(d.sum(0)) / (C * norm(x))
+            with torch.no_grad():
+                params_c = tree_map(lambda a: a[idx],
+                                    algo.client_params(state))
+                loss = float(torch.mean(client_losses(
+                    params_c, {"tokens": batches["tokens"][0][idx]})))
+            del params_c
+            split = timeline.rounds[-1]
+            emit({"phase": "train", "path": COHORT_PATH, "round": r,
+                  "cohort": idx.tolist(), "round_s": round_s,
+                  "cohort_loss": loss, "sum_d_over_c_x": resid,
+                  "in_place": in_place, "others_unchanged": unchanged,
+                  "split_ms": {k: v for k, v in split.items() if v}})
+            check(in_place, f"K round {r}: the scatter moved the store")
+            check(unchanged, f"K round {r}: a row outside the cohort changed")
+            check(resid <= INVARIANT_MAX,
+                  f"K round {r}: Lemma 2 residual {resid}")
+            check(math.isfinite(loss), f"K round {r}: loss {loss}")
+    finally:
+        undo()
+    launches = {k: v for k, v in L.LAUNCHES.items() if v}
+    plain = FedScenario(compression="shift:q8", arena=True).apply(
+        FedCET(alpha=ALPHA, c=C, tau=tau, n_clients=len(idx), x64=False))
+    want = store(plain.round(grad_fn, *plain_in))
+    del plain_in
+    x_norm = norm(want[0])
+    gaps = {"x": norm(cohort_out[0] - want[0]) / x_norm,
+            "d": norm(cohort_out[1] - want[1]) / (C * x_norm),
+            "h": norm(cohort_out[2] - want[2]) / max(norm(want[2]), 1e-30)}
+    bitwise = {k: torch.equal(a, b) for k, a, b in
+               zip(("x", "d", "h"), cohort_out, want)}
+    del cohort_out, want
+    emit({"phase": "train", "path": COHORT_PATH,
+          "check": "round_0_vs_plain_engine_on_the_cohort", "gaps": gaps,
+          "bounds": K_PLAIN_MAX, "bitwise_equal": bitwise})
+    for k, gap in gaps.items():
+        check(gap <= K_PLAIN_MAX[k], f"K round 0: the cohort's {k} is "
+              f"{gap} from a plain engine's on the same rows and tokens")
+    emit({"phase": "train", "path": COHORT_PATH, "scenario": {
+              "compression": "shift:q8", "arena": True,
+              "cohort": run["cohort"]},
+          "arch": "fedlm-100m", "reduced": False, **run,
+          "init_s": init_s, "init_launches": init_launches,
+          "init_peak_gb": init_peak / 1e9,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    check(init_launches == K_INIT_LAUNCHES,
+          f"K init launches {init_launches}, expected {K_INIT_LAUNCHES}")
+    check(launches == K_ROUND_LAUNCHES,
+          f"K round launches {launches}, expected {K_ROUND_LAUNCHES}")
+    del state
+    torch.cuda.empty_cache()
+    return {f: launches.get(f, 0) + init_launches.get(f, 0)
+            for f in KERNELS}
 
 
 #: the reference's quantization-error ratio (plan / uniform q8) at FULL
@@ -1697,7 +2090,7 @@ def phase_trainer():
     init_b = tree_map(lambda b: b[0], batches_for(0))
     algo = FedScenario(compression="shift:q8", arena=True).apply(
         FedCET(alpha=ALPHA, c=C, tau=TRAINER["tau"],
-               n_clients=TRAINER["n_clients"]))
+               n_clients=TRAINER["n_clients"], x64=False))
     saves = []
     real_save = trainer_mod.save
 
@@ -2073,6 +2466,8 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     phase_quadratic()
+    phase_staleness()
+    phase_cohort()
     phase_parity()
     phase_prng()
     paths = phase_fig1()

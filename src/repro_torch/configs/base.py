@@ -124,14 +124,6 @@ class ArchConfig:
                                    param_dtype=param_dtype or dtype)
 
 
-#: FedScenario fields whose mechanisms later slices port (see ROADMAP.md).
-_SCENARIO_LATER = {
-    "delay": ("none", "the staleness slice"),
-    "stale_policy": ("last", "the staleness slice"),
-    "cohort": ("none", "the cohort slice"),
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class FedScenario:
     """Launch-level federated-scenario knob: which compressor rides the
@@ -141,8 +133,13 @@ class FedScenario:
     first-match-wins ``pattern:spec`` rules for ``parse_plan``,
     ``"embed*:q12,ln*:bf16,*:shift:q6"``, or a ready ``CompressionPlan``,
     e.g. from ``plan.allocate``; ``error_feedback`` applies per rule), what
-    fraction of clients participates per round, whether the client store
-    lives in the packed arena, the aggregation geometry (``topology``, a
+    fraction of clients participates per round, the delay model and stale
+    policy of asynchronous rounds (``delay``: ``"fixed:2"``, ``"rr:2"``,
+    ``"geom:0.5"``; ``stale_policy``: ``"drop"``, ``"last"``,
+    ``"poly:1"``; ``core/staleness.py``), the cohort of O(cohort) rounds
+    (``cohort``: ``"block:256"``, ``"rr:64"``, ``"256"``, an int or a
+    ``CohortSpec``), whether the client store lives in the packed arena,
+    the aggregation geometry (``topology``, a
     ``core/topology.py:parse_topology`` spec: ``"star"``, ``"hier:g8"``,
     ``"ring"``, ``"ring:sparse"``, ``"er:0.4:t"``; ``tier_compression``
     re-compresses a hierarchy's interior tiers), the in-round telemetry
@@ -150,11 +147,10 @@ class FedScenario:
     sink spec string such as ``"jsonl:run.jsonl,hist:48"``), and the seed
     of their random schedules.
 
-    The other fields (delay and stale policy, cohort) mirror the
-    reference and must stay at their defaults: anything else raises "not
-    yet ported". ``apply`` composes the scenario onto any engine
-    algorithm, in the reference's order (telemetry last: an observer of
-    the composed round)."""
+    ``apply`` composes the scenario onto any engine algorithm in the
+    reference's order: arena, topology, participation, compression,
+    delay, cohort (last: it wraps the composed spec), then telemetry (an
+    observer of the composed round)."""
 
     compression: str = "none"
     compression_plan: Any = "none"
@@ -169,17 +165,10 @@ class FedScenario:
     telemetry: Any = False
     seed: int = 0
 
-    def __post_init__(self):
-        for name, (default, where) in _SCENARIO_LATER.items():
-            value = getattr(self, name)
-            if value != default and not (value is None and default == "none"):
-                raise NotImplementedError(
-                    f"FedScenario.{name}={value!r} is not yet ported to "
-                    f"PyTorch: it comes with {where}")
-
     def apply(self, algo):
         from repro_torch.core.compressors import from_spec, parse_plan
-        from repro_torch.core.engine import (with_arena, with_compression,
+        from repro_torch.core.engine import (with_arena, with_cohort,
+                                             with_compression, with_delay,
                                              with_participation,
                                              with_telemetry, with_topology)
 
@@ -203,4 +192,8 @@ class FedScenario:
             algo = with_compression(algo, compressor=comp,
                                     error_feedback=self.error_feedback,
                                     seed=self.seed)
+        algo = with_delay(algo, self.delay, policy=self.stale_policy,
+                          seed=self.seed)
+        # cohort last: every transform above runs inside the gathered round.
+        algo = with_cohort(algo, self.cohort, seed=self.seed)
         return with_telemetry(algo, self.telemetry)

@@ -23,8 +23,9 @@ messages, which keeps FedCET's fixed point exact; unbiasedness keeps the
 drift update mean-zero. Keys and draws are ``core/prng.py``'s, bit for bit
 those of ``jax.random``, so a compressed run is comparable with the
 reference's run for run. Draws whose dtype the reference leaves to
-``jax_enable_x64`` (``RandK``'s scores) are float64, the setting of the
-reference's tests.
+``jax_enable_x64`` (``RandK``'s scores) take the key's float dtype: the
+engine's keys carry float64 or float32 (``RoundEngine.x64``), the
+reference's under x64 on and off.
 
 Accounting contract: every compressor declares ``keep_frac``,
 ``index_bits`` (32 for TopK's int32 indices, 0 for seed-synchronized
@@ -273,9 +274,10 @@ class RandK(Compressor):
     """Uniform random-k sparsification, rescaled by ``n/k``: UNBIASED.
 
     One exact-k coordinate mask per round per leaf from the shared round
-    key (the ``k`` largest of ``n`` uniform scores, float64; all clients
-    and the server regenerate it, so no index bits travel), kept entries
-    rescaled so ``E[compress(v)] = v``."""
+    key (the ``k`` largest of ``n`` uniform scores in the key's float
+    dtype, ``core/prng.py``; all clients and the server regenerate it, so
+    no index bits travel), kept entries rescaled so ``E[compress(v)] =
+    v``."""
 
     k_frac: float
 
@@ -297,8 +299,7 @@ class RandK(Compressor):
         shape = _coord_shape(leaf)
         n = math.prod(shape)
         k = _k_of(self.k_frac, n)
-        scores = prng.uniform(key, (n,), dtype=torch.float64,
-                              device=leaf.device)
+        scores = prng.uniform(key, (n,), device=leaf.device)
         thresh = torch.topk(scores, k).values[-1]
         mask = (scores >= thresh).reshape(shape)
         scale = torch.tensor(n / k, dtype=leaf.dtype, device=leaf.device)

@@ -32,9 +32,9 @@ Composable factories, as in the reference:
   absent ones;
 * :func:`with_arena` packs the model tree into the ``[clients, rows,
   1024]`` arena of ``core/arena.py``, unpacked only at the gradient
-  boundary; on plain synchronous arena rounds with no topology attached,
-  the spec's ``_fused_tail`` may run compression -> reduce -> aggregate as
-  one kernel;
+  boundary; on plain synchronous arena rounds (no delay, no topology; a
+  cohort round never reaches it), the spec's ``_fused_tail`` may run
+  compression -> reduce -> aggregate as one kernel;
 * :func:`with_topology` replaces the flat star mean with a hierarchical
   tree or a gossip graph (``core/topology.py``), under the same per-client
   weights (uniform, or the participation mask). A stateful topology's
@@ -43,17 +43,45 @@ Composable factories, as in the reference:
   through ``reduce_and_advance``, and ``begin_round`` gets the read-only
   ``reduce``.
 
+* :func:`with_delay` simulates asynchronous rounds on the same seam: a
+  per-client delay model decides which uplinks land each round, the
+  server keeps the last-known wire message of every client
+  (:class:`~repro_torch.core.staleness.DelayState`, the last extras slot)
+  and a stale policy (``drop`` / ``last`` / ``poly:a``) turns that buffer
+  into the aggregate (``core/staleness.py``). Delay applies after
+  compression and composes with participation (absent clients cannot
+  deliver; their buffer entry keeps aging).
+* :func:`with_cohort` makes per-round work O(cohort) instead of O(N): the
+  per-client state stays in the ``[N, ...]`` client store, and each round
+  gathers the sampled cohort's rows, runs ``begin_round``, the local steps
+  and ``message`` on them (phase A), runs every cross-client step on
+  cohort-sized arrays (phase B: transforms, the delay buffer, the weighted
+  reduce, ``server_aggregate``, the participation freeze) and writes the
+  rows back IN PLACE (``index_copy_``): the round consumes its input
+  store, as the reference's donated carry does. ``lowering="dense"`` runs
+  phase A on all N rows and gathers the results instead (the O(N)
+  reference the tests hold the gather lowering to). Gossip topologies and
+  FedLin's cross-client top-k refuse a cohort.
 * :func:`with_telemetry` attaches the in-round telemetry spec of
   ``core/telemetry.py``: the round captures gradient and message norms,
-  compression error and the participation count onto the tape the round
-  runner opens, and :func:`make_round_runner` stacks the finalized
-  per-round metrics (invariant residual, consensus error, sketches) next
-  to its own. With no spec attached no capture op runs.
+  compression error, the participation count, the staleness ages and the
+  cohort's ids onto the tape the round runner opens, and
+  :func:`make_round_runner` stacks the finalized per-round metrics
+  (invariant residual, consensus error, sketches) next to its own. With no
+  spec attached no capture op runs.
+
+Random draws take the reference's canonical dtypes, chosen by the
+engine's ``x64`` field (never a global): with ``x64`` (the default) the
+participation mask, the within-cohort mask, ``geom:p`` arrivals, ``poly:a``
+weights, topology weights and every compressor key draw in float64 /
+int64, the reference's dtypes under ``jax_enable_x64`` (its tests and the
+float64 quadratic); without it in float32 / int32, its dtypes on the
+float32 LM entry points (``run_training`` builds its algorithm so).
 
 PyTorch runs eagerly, so the reference's ``lax.scan`` over local steps and
 over rounds become Python loops, and the step counter ``t`` is a Python
 int: every PRNG key of a round is derived on the host, and only the bulk
-draws run on the card. Delay and cohort stay as fields, and setting either
+draws run on the card. ``spmd_client_axes`` stays a field, and setting it
 raises ``NotImplementedError`` naming the slice that ports it.
 """
 
@@ -69,23 +97,23 @@ from repro_torch.core import prng
 from repro_torch.core import telemetry as tele
 from repro_torch.core.api import GradFn, vmap_grads
 from repro_torch.core.comm import sparsified_up_frac
+from repro_torch.core.staleness import (DelayState, StalenessConfig,
+                                        parse_delay, parse_policy,
+                                        weighted_client_mean)
 from repro_torch.core.topology import parse_topology
 from repro_torch.utils.tree import tree_client_mean, tree_leaves, tree_map
 
 #: engine fields whose mechanisms later slices port (see ROADMAP.md).
-_LATER = {
-    "delay": "the staleness slice",
-    "cohort": "the cohort slice",
-    "spmd_client_axes": "the multi-GPU launch slice",
-}
+_LATER = {"spmd_client_axes": "the multi-GPU launch slice"}
 
 
 class EngineState(NamedTuple):
     """Algorithm state plus per-transform extra state (the shift or
     error-feedback memory of stateful compressors), then a stateful
-    topology's ``TopoState``. Only
-    used when a transform or a stateful topology is attached; bare
-    algorithms keep their bare spec state."""
+    topology's ``TopoState``, then the delay buffer (``DelayState``) as
+    the last slot. Only used when a transform, a stateful topology or a
+    delay model is attached; bare algorithms keep their bare spec
+    state."""
 
     inner: Any
     extras: tuple
@@ -96,14 +124,14 @@ def participation_mask(key, n_clients: int, rate: float) -> torch.Tensor:
     """Bernoulli(rate) participation mask (a CPU bool tensor), guaranteed
     non-empty: if no client draws in, one uniformly random client is forced
     in. The Bernoulli draw and the fallback index use independent subkeys.
-    The draw compares in float64 and the fallback index is int64: the
-    reference's dtypes under ``jax_enable_x64``, the setting of its
-    tests."""
+    Both take the key's dtypes (``core/prng.py``): float64 / int64 from a
+    ``key(seed, x64=True)``, the reference's under ``jax_enable_x64``,
+    float32 / int32 otherwise."""
     k_draw, k_fallback = prng.split(key)
-    m = prng.bernoulli(k_draw, rate, (n_clients,), torch.float64)
+    m = prng.bernoulli(k_draw, rate, (n_clients,))
     if bool(m.any()):
         return m
-    first = int(prng.randint(k_fallback, (), 0, n_clients, torch.int64))
+    first = int(prng.randint(k_fallback, (), 0, n_clients))
     return torch.arange(n_clients) == first
 
 
@@ -134,17 +162,152 @@ def select_clients(new, old, mask: torch.Tensor, n_clients: int):
     return tree_map(sel, new, old)
 
 
+# --------------------------------------------------------------------- cohort
+#: domain-separation tag folded into cohort-selection keys (never collides
+#: with the participation, compression, delay or topology schedules).
+_COHORT_KEY_TAG = 0xC0_807
+
+
+def _per_client(a, n_clients: int) -> bool:
+    return isinstance(a, torch.Tensor) and a.dim() >= 1 \
+        and a.shape[0] == n_clients
+
+
+def gather_clients(tree, idx: torch.Tensor, n_clients: int):
+    """The ``idx`` rows of every per-client leaf (leading ``n_clients``
+    axis) of the client store; other leaves (the step counter, ``[1, ...]``
+    means) pass through."""
+    return tree_map(lambda a: a[idx] if _per_client(a, n_clients) else a,
+                    tree)
+
+
+def scatter_clients(store, rows, idx: torch.Tensor, n_clients: int):
+    """Write the cohort ``rows`` back into the client ``store`` IN PLACE
+    (``index_copy_`` on every per-client leaf: O(cohort) bytes, the
+    store's memory kept) and return it; other leaves take the cohort's
+    value, as :func:`select_clients` does. The reference writes
+    ``x.at[idx].set(rows)`` into a donated carry, which XLA updates in
+    place too."""
+
+    def s(o, r):
+        if _per_client(o, n_clients):
+            return o.index_copy_(0, idx, r.to(o.dtype))
+        return r
+
+    return tree_map(s, store, rows)
+
+
+def _unalias(tree, n_clients: int):
+    """``tree`` with every per-client leaf that shares storage with an
+    earlier one cloned: an in-place scatter into one must not write into
+    the other (a spec whose message returns a state leaf itself seeds the
+    delay buffer with that very tensor)."""
+    seen = set()
+
+    def own(a):
+        if not _per_client(a, n_clients):
+            return a
+        ptr = a.untyped_storage().data_ptr()
+        if ptr in seen:
+            return a.clone()
+        seen.add(ptr)
+        return a
+
+    return tree_map(own, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class CohortSpec:
+    """Per-round cohort selection for O(cohort) round execution (reference
+    ``core/engine.py:249-300``).
+
+    ``selector`` picks which ``size`` global client ids train each round,
+    all from the round-entry step counter (deterministic and
+    restart-stable): ``"uniform"`` (a random size-subset, from
+    ``prng.permutation``), ``"block"`` (a contiguous block at a random
+    offset) or ``"rr"`` (round-robin blocks ``[r*size, (r+1)*size) mod
+    N``). ``lowering`` is ``"gather"`` (phase A on the gathered ``[size,
+    ...]`` rows: O(cohort)) or ``"dense"`` (phase A on all ``[N, ...]``
+    rows, then gathered: the O(N) reference)."""
+
+    size: int
+    selector: str = "uniform"
+    seed: int = 0
+    lowering: str = "gather"
+
+    def __post_init__(self):
+        if self.size < 1:
+            raise ValueError(f"cohort size must be >= 1: {self.size}")
+        if self.selector not in ("uniform", "block", "rr"):
+            raise ValueError(f"unknown cohort selector {self.selector!r} "
+                             "(uniform | block | rr)")
+        if self.lowering not in ("gather", "dense"):
+            raise ValueError(f"unknown cohort lowering {self.lowering!r} "
+                             "(gather | dense)")
+
+    def indices(self, step: int, tau: int, n_clients: int,
+                device=None) -> torch.Tensor:
+        """The round's ``[size]`` global client ids (int64, on ``device``),
+        keyed by the round-entry step counter: ``rr`` on ``int32(step) //
+        tau``; ``block`` and ``uniform`` on ``fold_in(fold_in(key(seed),
+        0xC0807), int32(step))``, a ``randint`` offset in int32 or the
+        first ``size`` of ``permutation(N)``."""
+        m = self.size
+        ar_m = torch.arange(m, dtype=torch.int64, device=device)
+        if self.selector == "rr":
+            return torch.remainder((int(step) // tau) * m + ar_m, n_clients)
+        key = prng.fold_in(prng.fold_in(prng.key(self.seed), _COHORT_KEY_TAG),
+                           step)
+        if self.selector == "block":
+            off = int(prng.randint(key, (), 0, n_clients, torch.int32))
+            return torch.remainder(off + ar_m, n_clients)
+        return prng.permutation(key, n_clients, device=device)[:m]
+
+
+def parse_cohort(spec):
+    """Parse a cohort spec; ``None`` for identity specs (``None`` /
+    ``"none"`` / ``"off"`` / ``"full"`` / ``0``). Grammar: an int,
+    ``"256"``, ``"uniform:256"``, ``"block:256"``, ``"rr:256"``, with an
+    optional trailing ``":dense"`` / ``":gather"`` lowering."""
+    if spec is None or isinstance(spec, CohortSpec):
+        return spec
+    if isinstance(spec, int):
+        return CohortSpec(size=spec) if spec > 0 else None
+    s = str(spec).strip().lower()
+    if s in ("", "none", "off", "full", "0"):
+        return None
+    parts = s.split(":")
+    lowering = "gather"
+    if parts[-1] in ("gather", "dense"):
+        lowering = parts.pop()
+    if len(parts) == 1:
+        selector, size = "uniform", parts[0]
+    elif len(parts) == 2:
+        selector, size = parts
+    else:
+        raise ValueError(f"bad cohort spec {spec!r} "
+                         "(try 256, block:256, rr:256, block:256:dense)")
+    try:
+        size_i = int(size)
+    except ValueError:
+        raise ValueError(f"bad cohort size in spec {spec!r}: {size!r}")
+    if size_i <= 0:
+        return None
+    return CohortSpec(size=size_i, selector=selector, lowering=lowering)
+
+
 # ---------------------------------------------------------------- transforms
 #: domain-separation tag folded into compression keys so they never collide
 #: with the participation-mask key schedule (both default to seed=0).
 _COMPRESS_KEY_TAG = 0x7A11A5
 
 
-def compression_key(seed: int, index: int, step: int):
+def compression_key(seed: int, index: int, step: int, x64: bool = True):
     """``fold_in(fold_in(key(seed), TAG + index), int32(step))``: the
     reference's per-round compression key (``step`` -1 at the warm-up
-    aggregation folds in as ``0xFFFFFFFF``)."""
-    return prng.fold_in(prng.fold_in(prng.key(seed),
+    aggregation folds in as ``0xFFFFFFFF``); its draws that name no dtype
+    take float64 (``x64``) or float32."""
+    return prng.fold_in(prng.fold_in(prng.key(seed, x64),
                                      _COMPRESS_KEY_TAG + index), step)
 
 
@@ -192,8 +355,8 @@ class MessageCompression:
     def init_extra(self, msg_like):
         return self.compressor.init_extra(msg_like)
 
-    def apply(self, msg, extra, step: int):
-        key = (compression_key(self.seed, self.index, step)
+    def apply(self, msg, extra, step: int, x64: bool = True):
+        key = (compression_key(self.seed, self.index, step, x64)
                if self.compressor.requires_key else None)
         return self.compressor.apply(key, msg, extra)
 
@@ -255,8 +418,8 @@ class ErrorFeedbackCompression:
         """Feedback memory, shaped like the message."""
         return self._compressor().init_extra(msg_like)
 
-    def apply(self, msg, extra, step: int):
-        del step  # deterministic stack
+    def apply(self, msg, extra, step: int, x64: bool = True):
+        del step, x64  # deterministic stack
         return self._compressor().apply(None, msg, extra)
 
 
@@ -281,14 +444,23 @@ class RoundEngine:
     transforms: tuple = dataclasses.field(default=(), kw_only=True)
     sampling: ClientSampling | None = dataclasses.field(default=None,
                                                         kw_only=True)
-    delay: Any | None = dataclasses.field(default=None, kw_only=True)
+    #: asynchronous rounds (delay model, buffer, stale policy); attach via
+    #: ``with_delay`` (core/staleness.py).
+    delay: StalenessConfig | None = dataclasses.field(default=None,
+                                                      kw_only=True)
     topology: Any | None = dataclasses.field(default=None, kw_only=True)
-    cohort: Any | None = dataclasses.field(default=None, kw_only=True)
+    #: O(cohort) round execution on the client store; attach via
+    #: ``with_cohort``. None: every client trains.
+    cohort: CohortSpec | None = dataclasses.field(default=None, kw_only=True)
     #: pack the model tree into the contiguous [rows, 1024] parameter arena
     #: (core/arena.py); attach via ``with_arena``.
     arena: bool = dataclasses.field(default=False, kw_only=True)
     telemetry: Any | None = dataclasses.field(default=None, kw_only=True)
     spmd_client_axes: tuple = dataclasses.field(default=(), kw_only=True)
+    #: the dtypes of the round's random draws and weights: float64 / int64
+    #: (the reference's under ``jax_enable_x64``: its tests, the float64
+    #: quadratic) or, False, float32 / int32 (its float32 LM entry points).
+    x64: bool = dataclasses.field(default=True, kw_only=True)
 
     def __post_init__(self):
         for name, where in _LATER.items():
@@ -317,8 +489,9 @@ class RoundEngine:
 
     def _fused_tail(self, inner, msg, mctx, extras, step, mask):
         """Optional whole-round-tail fusion hook, consulted by
-        ``_comm_step`` on plain synchronous arena rounds with no topology
-        attached (the fused tail computes the star mean). A spec that can
+        ``_comm_step`` on plain synchronous arena rounds, with no delay and
+        no topology attached (the fused tail computes the star mean of the
+        fresh messages). A spec that can
         run transform -> reduce -> ``server_aggregate`` as one fused pass
         over its packed message returns ``(new_inner, new_extras)``;
         ``None`` falls through to the generic seam."""
@@ -404,16 +577,40 @@ class RoundEngine:
 
     @property
     def transmit_frac(self) -> float:
-        """Expected fraction of rounds a client's uplink lands: the
-        sampling rate (1.0 synchronous, full participation). Ignores the
-        non-empty-mask fallback's tiny upward correction."""
-        return 1.0 if self.sampling is None else min(self.sampling.rate, 1.0)
+        """Expected fraction of rounds a client's uplink lands (1.0
+        synchronous): the cohort's ``size/N``, times the sampling rate,
+        times the delay model's duty cycle (independent streams, so the
+        expectations multiply). Ignores the non-empty-mask fallback's tiny
+        upward correction."""
+        frac = self._cohort_frac
+        if self.sampling is not None:
+            frac *= min(self.sampling.rate, 1.0)
+        if self.delay is not None:
+            frac *= self.delay.transmit_frac(self.n_clients)
+        return frac
 
     @property
     def receive_frac(self) -> float:
         """Expected fraction of rounds a client RECEIVES the downlink: the
-        server broadcasts to present clients only."""
-        return 1.0 if self.sampling is None else min(self.sampling.rate, 1.0)
+        server broadcasts to present clients only, and only the cohort's
+        ``size/N`` slice receives anything. Delay does not reduce it:
+        stale-but-present clients still apply the update."""
+        frac = self._cohort_frac
+        if self.sampling is not None:
+            frac *= min(self.sampling.rate, 1.0)
+        return frac
+
+    @property
+    def _cohort_frac(self) -> float:
+        return (self.cohort.size / self.n_clients
+                if self.cohort is not None else 1.0)
+
+    @property
+    def cohort_compatible(self) -> bool:
+        """Whether the spec's own math is cohort-safe: True unless it runs
+        a cross-client computation outside the engine's phase-B seam
+        (FedLin's cross-client top-k overrides this)."""
+        return True
 
     # ------------------------------------------------------- state wrapping
     @property
@@ -422,26 +619,31 @@ class RoundEngine:
 
     @property
     def _wrapped(self) -> bool:
-        return bool(self.transforms) or self._topo_stateful
+        return (bool(self.transforms) or self.delay is not None
+                or self._topo_stateful)
 
-    def _wrap(self, inner, extras, tstate=None):
+    def _wrap(self, inner, extras, tstate=None, dstate=None):
         if not self._wrapped:
             return inner
         extras = tuple(extras)
         if self._topo_stateful:
             extras += (tstate,)
+        if self.delay is not None:
+            extras += (dstate,)
         return EngineState(inner, extras)
 
     def _split(self, state):
-        """-> (inner, transform extras, TopoState | None). Extras layout:
-        per-transform slots first, then the stateful topology's
-        TopoState."""
+        """-> (inner, transform extras, TopoState | None, DelayState |
+        None). Extras layout: per-transform slots first, then the stateful
+        topology's TopoState, then the delay buffer as the last slot."""
         if not self._wrapped:
-            return state, (), None
-        extras, tstate = state.extras, None
+            return state, (), None, None
+        extras, tstate, dstate = state.extras, None, None
+        if self.delay is not None:
+            extras, dstate = extras[:-1], extras[-1]
         if self._topo_stateful:
             extras, tstate = extras[:-1], extras[-1]
-        return state.inner, extras, tstate
+        return state.inner, extras, tstate, dstate
 
     def _inner(self, state):
         return state.inner if self._wrapped else state
@@ -484,14 +686,25 @@ class RoundEngine:
         return tuple(t.init_extra(like) for t in self.transforms)
 
     def _comm_step(self, gf, inner, extras, batch, rctx, agg, step,
-                   tstate=None, mask=None):
-        """The single aggregating step: message -> transforms -> reduce ->
-        apply. ``step`` is the state's step counter at round entry (keys
-        the stochastic transforms). With a topology attached the reduction
-        goes through ``reduce_and_advance`` under the ``mask``-derived
-        weights, the one place topology state moves. On arena rounds with
-        no topology the spec's fused tail may take the whole seam (it
-        computes the star mean). Returns ``(inner, extras, tstate)``."""
+                   tstate=None, dstate=None, fresh=None, mask=None):
+        """The single aggregating step: message -> transforms -> [delay
+        buffer] -> reduce -> apply. ``step`` is the state's step counter at
+        round entry (keys the stochastic transforms). With a topology
+        attached the reduction goes through ``reduce_and_advance``, the
+        one place topology state moves, under the ``mask``-derived weights.
+        The spec's fused tail may take the whole seam only on plain
+        synchronous arena rounds (no delay, no topology: it computes the
+        star mean).
+
+        With ``dstate`` / ``fresh`` (a ``with_delay`` round) the wire
+        message lands in the server buffer only where ``fresh``, the stale
+        policy turns buffer and ages into the weights of the mean, and
+        stale clients apply the update with their BUFFERED message
+        (``last`` / ``poly``) or take the tau-th step as a pure local step
+        (``drop``); they did not transmit, so their transform memory
+        reverts. Returns ``(inner, extras, tstate, dstate, tx)``, ``tx``
+        the post-transform wire message (``init`` seeds the buffer from
+        it)."""
         msg, mctx = self.message(gf, inner, batch, rctx)
         # observer-only telemetry: rec is False when no spec is attached or
         # no tape is active (init, direct round calls).
@@ -500,15 +713,52 @@ class RoundEngine:
             tele.capture("msg_norm", tele.mean_client_norm(msg))
             if self.telemetry.leaf_stats:
                 tele.capture("leaf_msg_norm", tele.leaf_client_norms(msg))
-        if self.arena and self.topology is None:
+        if (dstate is None and self.delay is None and self.topology is None
+                and self.arena):
             fused = self._fused_tail(inner, msg, mctx, extras, step, mask)
             if fused is not None:
                 inner, new_extras = fused
-                return inner, tuple(new_extras), tstate
+                return inner, tuple(new_extras), tstate, None, None
+        msg, new_extras = self._transmit(msg, extras, step, rec)
+        like = tree_leaves(msg)[0]
+        if dstate is None:  # synchronous path (and always: init)
+            if self.topology is not None:
+                msg_bar, tstate = self.topology.reduce_and_advance(
+                    msg, self._topo_weights(mask, like), tstate)
+            else:
+                msg_bar = agg(msg)
+            inner = self.server_aggregate(inner, msg, msg_bar, mctx, rctx)
+            return inner, new_extras, tstate, None, msg
+        # fresh arrivals replace the buffered copy and reset its age; the
+        # buffer is server state: it updates and ages every round.
+        n = self.n_clients
+        buf = select_clients(msg, dstate.buf, fresh, n)
+        age = torch.where(fresh, 0, dstate.age + 1).to(dstate.age.dtype)
+        if rec:
+            self._capture_ages(fresh, age)
+        w = self.delay.policy.weights(age, fresh, self.x64)
+        if self.topology is not None:
+            msg_bar, tstate = self.topology.reduce_and_advance(buf, w, tstate)
+        else:
+            msg_bar = weighted_client_mean(buf, w)
+        # each client's own-message slot is what the server attributed to
+        # it: the fresh wire message where it landed, the buffer elsewhere.
+        agg_inner = self.server_aggregate(inner, buf, msg_bar, mctx, rctx)
+        if not self.delay.policy.apply_stale:
+            # drop: no-arrival clients take the tau-th step locally.
+            local = self.local_step(gf, inner, batch, rctx)
+            agg_inner = select_clients(agg_inner, local, fresh, n)
+        new_extras = tuple(select_clients(ne, e, fresh, n)
+                           for ne, e in zip(new_extras, extras))
+        return agg_inner, new_extras, tstate, DelayState(buf=buf, age=age), msg
+
+    def _transmit(self, msg, extras, step: int, rec: bool):
+        """The transform stack on ``msg``: ``(wire message, new extras)``,
+        with the compression-error captures when ``rec``."""
         raw = msg
         new_extras = []
         for t, e in zip(self.transforms, extras):
-            msg, e = t.apply(msg, e, step)
+            msg, e = t.apply(msg, e, step, self.x64)
             new_extras.append(e)
         if rec and self.transforms:
             diff = tree_map(lambda a, b: a - b, msg, raw)
@@ -519,21 +769,41 @@ class RoundEngine:
             if self.telemetry.leaf_stats:
                 tele.capture("leaf_compress_err",
                              tele.leaf_client_norms(diff))
-        if self.topology is not None:
-            msg_bar, tstate = self.topology.reduce_and_advance(
-                msg, self._topo_weights(mask, tree_leaves(msg)[0]), tstate)
-        else:
-            msg_bar = agg(msg)
-        inner = self.server_aggregate(inner, msg, msg_bar, mctx, rctx)
-        return inner, tuple(new_extras), tstate
+        return msg, tuple(new_extras)
 
-    def _topo_weights(self, mask, like: torch.Tensor) -> torch.Tensor:
-        """The per-client weights a topology reduces under, on ``like``'s
-        device: uniform, or the participation mask. float64, the
-        reference's dtype under ``jax_enable_x64``."""
+    @staticmethod
+    def _capture_ages(fresh: torch.Tensor, age: torch.Tensor) -> None:
+        """The staleness captures: arrivals, and the buffer's ages."""
+        tele.capture("fresh_count", fresh.to(torch.int32).sum(
+            dtype=torch.int32))
+        tele.capture("age_min", torch.min(age))
+        tele.capture("age_mean", torch.mean(age.to(torch.float32)))
+        tele.capture("age_max", torch.max(age))
+
+    def _would_transmit(self, gf, inner, extras, batch):
+        """The wire message the current state WOULD transmit (round context
+        and transform-memory updates discarded): seeds the delay buffer of
+        specs whose warm-up runs no aggregation."""
+        st, rctx = self.begin_round(gf, inner, batch, tree_client_mean)
+        msg, _ = self.message(gf, st, batch, rctx)
+        for t, e in zip(self.transforms, extras):
+            msg, _ = t.apply(msg, e, inner.t, self.x64)
+        return msg
+
+    @property
+    def _float(self) -> torch.dtype:
+        """The canonical float dtype of draws and weights."""
+        return torch.float64 if self.x64 else torch.float32
+
+    def _topo_weights(self, mask, like: torch.Tensor,
+                      n: int | None = None) -> torch.Tensor:
+        """The per-client weights a topology reduces under on non-delayed
+        rounds, on ``like``'s device: uniform, or the participation mask,
+        in the canonical float dtype. ``n`` overrides the length (cohort
+        rounds reduce over the cohort slots)."""
         if mask is not None:
-            return mask.to(device=like.device, dtype=torch.float64)
-        return torch.ones((self.n_clients,), dtype=torch.float64,
+            return mask.to(device=like.device, dtype=self._float)
+        return torch.ones((n or self.n_clients,), dtype=self._float,
                           device=like.device)
 
     def _aggregator(self, mask, tstate, like: torch.Tensor):
@@ -548,20 +818,41 @@ class RoundEngine:
             return lambda tr: masked_client_mean(tr, mask)
         return tree_client_mean
 
-    def _mask(self, step: int, like: torch.Tensor):
-        """The round's participation mask on ``like``'s device, or None."""
+    def _cohort_aggregator(self, mask, idx, tstate, like: torch.Tensor):
+        """The cohort round's READ-ONLY reduction over gathered ``[cohort,
+        ...]`` rows: the topology's cohort reduce (fed the cohort's global
+        ids) or the weighted cohort mean."""
+        w = self._topo_weights(mask, like, self.cohort.size)
+        if self.topology is not None:
+            return lambda tr: self.topology.reduce_cohort(
+                tr, w, idx, self.n_clients, tstate)
+        return lambda tr: weighted_client_mean(tr, w)
+
+    def _mask(self, step: int, like: torch.Tensor, n: int | None = None):
+        """The round's participation mask over ``n`` (default all) clients
+        on ``like``'s device, or None."""
         if self.sampling is None:
             return None
-        key = prng.fold_in(prng.key(self.sampling.seed), step)
-        return participation_mask(key, self.n_clients,
+        key = prng.fold_in(prng.key(self.sampling.seed, self.x64), step)
+        return participation_mask(key, n or self.n_clients,
                                   self.sampling.rate).to(like.device)
+
+    def _capture_participating(self, mask, n: int, like) -> None:
+        tele.capture("participating",
+                     mask.to(torch.int32).sum(dtype=torch.int32)
+                     if mask is not None
+                     else torch.tensor(n, dtype=torch.int32,
+                                       device=like.device))
 
     # -------------------------------------------------------------- protocol
     def init(self, grad_fn: GradFn, x0, init_batch):
         """Replicate-and-warm-up, plus one aggregating step if the spec's
-        warm-up requests it. Client sampling never applies at init (the
-        paper's full-participation initialization), but the topology does:
-        the warm-up aggregation already flows through the tree or graph."""
+        warm-up requests it. Client sampling and delay never apply at init
+        (the paper's full-participation synchronous initialization), and
+        ``init`` stays dense over all N clients under a cohort; the
+        topology does apply: the warm-up aggregation already flows through
+        the tree or graph. The delay buffer is seeded with each client's
+        init-time wire message (or the one it would send), age 0."""
         gf = self._grad(grad_fn)
         if self.arena and not isinstance(x0, ar.Arena):
             # every state, message and transform-memory tree the spec builds
@@ -574,50 +865,194 @@ class RoundEngine:
         if self.topology is not None:
             tstate = self.topology.init_state(
                 like if self.topology.needs_msg_shapes else None)
+        tx = None
         if run_comm:
-            inner, extras, tstate = self._comm_step(
+            inner, extras, tstate, _, tx = self._comm_step(
                 gf, inner, extras, init_batch, None,
                 self._aggregator(None, tstate, tree_leaves(like)[0]),
                 step=inner.t, tstate=tstate)
-        return self._wrap(inner, extras, tstate)
+        dstate = None
+        if self.delay is not None:
+            if tx is None:
+                tx = self._would_transmit(gf, inner, extras, init_batch)
+            age = torch.zeros((self.n_clients,), dtype=torch.int32,
+                              device=tree_leaves(tx)[0].device)
+            dstate = DelayState(buf=tx, age=age)
+        return self._wrap(inner, extras, tstate, dstate)
 
     def round(self, grad_fn: GradFn, state, batches):
         """One communication round: optional round-start exchange, tau-1
         local steps, one aggregating step. ``batches`` leaves have leading
-        ``[tau, clients, ...]`` axes."""
+        ``[tau, clients, ...]`` axes. With a cohort attached the round is
+        :meth:`_cohort_round`: same state layout and hooks, O(cohort)
+        work."""
+        if self.cohort is not None:
+            return self._cohort_round(grad_fn, state, batches)
         gf = self._grad(grad_fn)
-        inner, extras, tstate = self._split(state)
+        inner, extras, tstate, dstate = self._split(state)
         step0 = inner.t  # round-entry counter: keys masks AND compressors
         like = tree_leaves(self.message_like(inner))[0]
         mask = self._mask(step0, like)
         agg = self._aggregator(mask, tstate, like)
+        fresh = None
+        if self.delay is not None:
+            fresh = self.delay.fresh_mask(step0, self.tau, self.n_clients,
+                                          x64=self.x64, device=like.device)
+            if mask is not None:
+                fresh = fresh & mask  # absent clients cannot deliver
         if self.telemetry is not None and tele.collecting():
-            tele.capture("participating",
-                         mask.to(torch.int32).sum(dtype=torch.int32)
-                         if mask is not None
-                         else torch.tensor(self.n_clients, dtype=torch.int32,
-                                           device=like.device))
+            self._capture_participating(mask, self.n_clients, like)
         frozen_inner, frozen_extras = inner, extras
         inner, rctx = self.begin_round(
             gf, inner, tree_map(lambda b: b[0], batches), agg)
-        # muted, as the reference's local lax.scan: grad_norm is the
-        # aggregating step's.
+        inner = self._local_steps(gf, inner, batches, rctx)
+        last_b = tree_map(lambda b: b[self.tau - 1], batches)
+        inner, extras, tstate, dstate, _ = self._comm_step(
+            gf, inner, extras, last_b, rctx, agg, step=step0, tstate=tstate,
+            dstate=dstate, fresh=fresh, mask=mask)
+        if mask is not None:
+            # absent clients keep their pre-round state entirely; the delay
+            # buffer and the topology round index are server and network
+            # state and are never reverted.
+            inner = select_clients(inner, frozen_inner, mask, self.n_clients)
+            extras = tuple(select_clients(e, fe, mask, self.n_clients)
+                           for e, fe in zip(extras, frozen_extras))
+        return self._wrap(inner, extras, tstate, dstate)
+
+    def _local_steps(self, gf, inner, batches, rctx):
+        """The tau-1 pure-local steps, muted as the reference's local
+        ``lax.scan`` (``grad_norm`` is the aggregating step's)."""
         with tele.muted():
             for k in range(self.tau - 1):
                 inner = self.local_step(gf, inner,
                                         tree_map(lambda b: b[k], batches),
                                         rctx)
-        last_b = tree_map(lambda b: b[self.tau - 1], batches)
-        inner, extras, tstate = self._comm_step(
-            gf, inner, extras, last_b, rctx, agg, step=step0, tstate=tstate,
-            mask=mask)
+        return inner
+
+    def _cohort_round(self, grad_fn: GradFn, state, batches):
+        """One O(cohort) round (reference ``core/engine.py:1023-1185``):
+        select the cohort's global ids, gather their rows from the client
+        store, run phase A (per-client compute) on the cohort, phase B (all
+        cross-client work) on cohort-sized arrays, and scatter the updated
+        rows back into the store IN PLACE. The round consumes ``state``:
+        its per-client tensors ARE the returned state's, as the
+        reference's donated carry is; a caller that needs the pre-round
+        state clones it first. Non-cohort clients are untouched but for
+        the server-side aging of their delay-buffer entries."""
+        gf = self._grad(grad_fn)
+        inner, extras, tstate, dstate = self._split(state)
+        N, m, tau = self.n_clients, self.cohort.size, self.tau
+        # the scatter writes into these tensors: no two may share memory.
+        if dstate is not None:
+            inner, extras, buf = _unalias((inner, extras, dstate.buf), N)
+            dstate = DelayState(buf=buf, age=dstate.age)
+        else:
+            inner, extras = _unalias((inner, extras), N)
+        like = tree_leaves(self.message_like(inner))[0]
+        step0 = inner.t  # round-entry counter: keys cohort, masks, dither
+        idx = self.cohort.indices(step0, tau, N, device=like.device)
+        # within-cohort participation: an absent member freezes.
+        mask = self._mask(step0, like, m)
+        fresh = None
+        if self.delay is not None:
+            # delay schedules key on GLOBAL client ids.
+            fresh = self.delay.fresh_mask(step0, tau, N, x64=self.x64,
+                                          device=like.device)[idx]
+            if mask is not None:
+                fresh = fresh & mask
+        agg = self._cohort_aggregator(mask, idx, tstate, like)
+        frozen_inner = gather_clients(inner, idx, N)  # pre-round rows
+        extras_c = tuple(gather_clients(e, idx, N) for e in extras)
+
+        # ---- phase A: per-client compute (begin_round -> local -> message)
+        if self.cohort.lowering == "dense":
+            # the O(N) reference: every client computes, the cohort's rows
+            # feed phase B.
+            st, rctx = self.begin_round(
+                gf, inner, tree_map(lambda b: b[0], batches),
+                lambda tr: agg(gather_clients(tr, idx, N)))
+            st = self._local_steps(gf, st, batches, rctx)
+            last_b = tree_map(lambda b: b[tau - 1], batches)
+            msg, mctx = self.message(gf, st, last_b, rctx)
+            inner_c = gather_clients(st, idx, N)
+            msg_c = gather_clients(msg, idx, N)
+            mctx_c = msg_c if mctx is msg else gather_clients(mctx, idx, N)
+            rctx_c = gather_clients(rctx, idx, N)
+            last_b_c = gather_clients(last_b, idx, N)
+        else:
+            batches_c = tree_map(
+                lambda b: (b[:, idx] if isinstance(b, torch.Tensor)
+                           and b.dim() >= 2 and b.shape[1] == N else b),
+                batches)
+            inner_c, rctx_c = self.begin_round(
+                gf, frozen_inner, tree_map(lambda b: b[0], batches_c), agg)
+            inner_c = self._local_steps(gf, inner_c, batches_c, rctx_c)
+            last_b_c = tree_map(lambda b: b[tau - 1], batches_c)
+            msg_c, mctx_c = self.message(gf, inner_c, last_b_c, rctx_c)
+
+        # ---- phase B: transforms -> [buffer] -> reduce -> apply, on
+        # cohort-sized arrays in both lowerings.
+        rec = self.telemetry is not None and tele.collecting()
+        if rec:
+            tele.capture("msg_norm", tele.mean_client_norm(msg_c))
+            self._capture_participating(mask, m, like)
+            if self.telemetry.leaf_stats:
+                tele.capture("leaf_msg_norm", tele.leaf_client_norms(msg_c))
+        tx_c, new_extras_c = self._transmit(msg_c, extras_c, step0, rec)
+        if rec and self.transforms \
+                and self.telemetry.wants_sketch("compress_err"):
+            # cohort-sized wire data: finalize maps the top-k slots to
+            # GLOBAL client ids through the captured index.
+            tele.capture("cohort_ids", idx.to(torch.int32))
+        dstate_next = None
+        if dstate is None:
+            w = self._topo_weights(mask, like, m)
+            if self.topology is not None:
+                msg_bar, tstate = self.topology.reduce_cohort_and_advance(
+                    tx_c, w, idx, N, tstate)
+            else:
+                msg_bar = weighted_client_mean(tx_c, w)
+            inner_c = self.server_aggregate(inner_c, tx_c, msg_bar, mctx_c,
+                                            rctx_c)
+        else:
+            buf_c = select_clients(tx_c, gather_clients(dstate.buf, idx, N),
+                                   fresh, m)
+            age_c = torch.where(fresh, 0, dstate.age[idx] + 1).to(
+                dstate.age.dtype)
+            w = self.delay.policy.weights(age_c, fresh, self.x64)
+            if self.topology is not None:
+                msg_bar, tstate = self.topology.reduce_cohort_and_advance(
+                    buf_c, w, idx, N, tstate)
+            else:
+                msg_bar = weighted_client_mean(buf_c, w)
+            agg_inner_c = self.server_aggregate(inner_c, buf_c, msg_bar,
+                                                mctx_c, rctx_c)
+            if not self.delay.policy.apply_stale:
+                local = self.local_step(gf, inner_c, last_b_c, rctx_c)
+                agg_inner_c = select_clients(agg_inner_c, local, fresh, m)
+            inner_c = agg_inner_c
+            new_extras_c = tuple(select_clients(ne, e, fresh, m)
+                                 for ne, e in zip(new_extras_c, extras_c))
+            # the buffer is server state: every non-cohort entry keeps
+            # aging, cohort entries land.
+            age = (dstate.age + 1).to(dstate.age.dtype).index_copy_(
+                0, idx, age_c)
+            dstate_next = DelayState(
+                buf=scatter_clients(dstate.buf, buf_c, idx, N), age=age)
+            if rec:
+                # cohort arrivals; ages over the FULL server buffer.
+                self._capture_ages(fresh, age)
         if mask is not None:
-            # absent clients keep their pre-round state entirely; the
-            # topology round index is network state and is never reverted.
-            inner = select_clients(inner, frozen_inner, mask, self.n_clients)
-            extras = tuple(select_clients(e, fe, mask, self.n_clients)
-                           for e, fe in zip(extras, frozen_extras))
-        return self._wrap(inner, extras, tstate)
+            # absent cohort members keep their pre-round rows entirely.
+            inner_c = select_clients(inner_c, frozen_inner, mask, m)
+            new_extras_c = tuple(select_clients(e, fe, mask, m)
+                                 for e, fe in zip(new_extras_c, extras_c))
+
+        # ---- scatter the cohort rows back into the client store, in place
+        inner_next = scatter_clients(inner, inner_c, idx, N)
+        extras_next = tuple(scatter_clients(e, ec, idx, N)
+                            for e, ec in zip(extras, new_extras_c))
+        return self._wrap(inner_next, extras_next, tstate, dstate_next)
 
 
 # ------------------------------------------------------- transform factories
@@ -701,7 +1136,73 @@ def with_topology(algo: RoundEngine, topology, *, seed: int = 0,
         raise ValueError("algorithm already has a topology attached "
                          f"({algo.topology!r}); stacked topologies are "
                          "undefined")
+    if algo.cohort is not None and not topo.supports_cohort:
+        raise ValueError(
+            f"topology {topo!r} does not support cohort execution (gossip "
+            "mixing has no server to sample a cohort: every node exchanges "
+            "with its neighbors every round)")
     return dataclasses.replace(algo, topology=topo)
+
+
+def with_delay(algo: RoundEngine, delay, *, policy="last",
+               seed: int = 0) -> RoundEngine:
+    """Asynchronous rounds for ANY engine algorithm: delayed uplinks with a
+    server-side last-known message buffer and a stale-aggregation policy
+    (see ``core/staleness.py``).
+
+    ``delay`` is a spec string (``"fixed:2"``, ``"rr:1"``, ``"geom:0.5"``)
+    or a delay-model object; ``policy`` is ``"drop"`` / ``"last"`` /
+    ``"poly:<a>"`` (or a ``StalePolicy``); ``seed`` keys stochastic
+    schedules. Identity delays (``"none"``, ``"fixed:0"``, ``"rr:0"``,
+    ``"geom:1"``) return the algorithm unchanged, for every policy. Delay
+    applies at the aggregation seam after the compression transforms (the
+    buffer holds wire messages), so factory order does not matter."""
+    model = parse_delay(delay)
+    if model is None:
+        return algo
+    if algo.delay is not None:
+        raise ValueError("algorithm already has a delay model attached "
+                         f"({algo.delay!r}); stacked delays are undefined")
+    cfg = StalenessConfig(model=model, policy=parse_policy(policy), seed=seed)
+    return dataclasses.replace(algo, delay=cfg)
+
+
+def with_cohort(algo: RoundEngine, cohort, *, seed: int = 0) -> RoundEngine:
+    """O(cohort) round execution for ANY engine algorithm: the per-client
+    state stays in the client store and each round runs on a gathered
+    fixed-size cohort (see the module docstring).
+
+    ``cohort`` is a size (int), a spec string (``"256"``, ``"block:256"``,
+    ``"rr:256"``, with an optional trailing ``":dense"``) or a
+    :class:`CohortSpec`; ``seed`` keys the stochastic selectors. Identity
+    specs (``None`` / ``"none"`` / ``0`` / ``size >= n_clients``) return
+    the algorithm unchanged. Attach the cohort LAST: the factory validates
+    the axes already attached, and refuses gossip topologies, stacking and
+    specs whose own math crosses clients (``cohort_compatible`` False:
+    FedLin with ``k_frac < 1``)."""
+    spec = cohort if isinstance(cohort, CohortSpec) else parse_cohort(cohort)
+    if spec is not None and not isinstance(cohort, CohortSpec):
+        spec = dataclasses.replace(spec, seed=seed)
+    if spec is None or spec.size >= algo.n_clients:
+        if spec is not None and spec.size > algo.n_clients:
+            raise ValueError(f"cohort size {spec.size} exceeds "
+                             f"n_clients={algo.n_clients}")
+        return algo
+    if algo.cohort is not None:
+        raise ValueError("algorithm already has a cohort attached "
+                         f"({algo.cohort!r}); stacked cohorts are undefined")
+    if not algo.cohort_compatible:
+        raise ValueError(
+            f"{algo.name} is not cohort-compatible: its spec performs a "
+            "cross-client computation outside the engine's aggregation "
+            "seam (FedLin's internal cross-client top-k needs the full "
+            "population: use k_frac=1.0 / FedTrack, or move compression "
+            "to with_compression)")
+    if algo.topology is not None and not algo.topology.supports_cohort:
+        raise ValueError(
+            f"topology {algo.topology!r} does not support cohort execution "
+            "(gossip mixing has no server to sample a cohort)")
+    return dataclasses.replace(algo, cohort=spec)
 
 
 def with_arena(algo: RoundEngine, enable: bool = True) -> RoundEngine:
@@ -750,7 +1251,11 @@ def make_round_runner(algo, grad_fn: GradFn, *, metric_fn=None,
     :func:`~repro_torch.core.telemetry.collect` tape and the second return
     value becomes ``{"metric": ..., "telemetry": {name: [rounds, ...]}}``
     (split it with :func:`~repro_torch.core.telemetry.split_metrics`);
-    without telemetry it is exactly the plain structure."""
+    without telemetry it is exactly the plain structure.
+
+    A cohort algorithm's round writes into its input state (the
+    reference's ``donate=True``), so the runner consumes ``state``: rebind
+    the result and read nothing of the state passed in."""
     tel = getattr(algo, "telemetry", None)
 
     def _metric(s, b):

@@ -149,8 +149,8 @@ class FedCET(RoundEngine):
         scale = C.arena_scale(va - ha, lo, levels)
         # MessageCompression's round key, then the per-leaf dither draws in
         # flatten (== layout) order: bit-identical to the generic path.
-        u = quant.arena_dither(compression_key(t.seed, t.index, step), lo,
-                               n, dev)
+        u = quant.arena_dither(
+            compression_key(t.seed, t.index, step, self.x64), lo, n, dev)
         if mask is None:
             w = torch.ones((n, 1), dtype=ft, device=dev)
             den = torch.full((1, 1), n, dtype=ft, device=dev)

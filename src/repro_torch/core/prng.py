@@ -23,10 +23,17 @@ Bits as jax draws them (the traps, with their lines in jax's ``prng.py``):
   index; 32-bit draws are ``bits1 ^ bits2``, 64-bit draws
   ``(bits1 << 32) | bits2``.
 * ``uniform`` ORs the top mantissa bits into 1.0 and subtracts 1.0.
-* ``bernoulli(key, p)`` draws its uniform in the dtype of ``p``: float64
-  under ``jax_enable_x64`` (as the reference's tests run), float32
-  otherwise. Here the dtype is an explicit argument; so is ``randint``'s,
-  whose default in jax is int64 under x64 and int32 otherwise.
+* ``bernoulli(key, p)`` draws its uniform in the dtype of ``p``, and
+  ``uniform`` and ``randint`` default to jax's canonical dtypes: float64 /
+  int64 under ``jax_enable_x64`` (the reference's tests and its float64
+  quadratic), float32 / int32 without it (its float32 LM entry points).
+  Here that choice is the key's: ``key(seed, x64=...)`` sets it, every
+  key derived through ``fold_in`` / ``split`` keeps it, and a draw given
+  no dtype takes it. There is no global setting.
+* ``permutation(key, n)`` (``random.py:_shuffle``) runs ``ceil(3 ln n /
+  ln(2**32 - 1))`` rounds; each splits the key, draws 32 bits over
+  ``[n]`` from the subkey and sorts by them, stably. The bits are
+  unsigned, so they sort as int64 here.
 * ``categorical(key, logits)`` (``random.py:_gumbel``, mode "low") draws
   its uniform in the logits' dtype on ``[tiny, 1)``, as
   ``max(tiny, u * (1 - tiny) + tiny)``, and takes the argmax of
@@ -43,7 +50,35 @@ import torch
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
-Key = tuple  # (hi word, lo word), each an int in [0, 2**32)
+
+
+class Key(tuple):
+    """A key's two 32-bit words ``(hi, lo)``, each an int in ``[0,
+    2**32)``, and ``x64``: whether a draw from it that names no dtype takes
+    float64 / int64 (True) or float32 / int32 (False), as jax's canonical
+    dtypes do with ``jax_enable_x64`` on or off. A key equals the plain
+    tuple of its words; a plain tuple passed as a key draws as ``x64``."""
+
+    x64: bool
+
+    def __new__(cls, words, x64: bool = True):
+        k = super().__new__(cls, words)
+        k.x64 = bool(x64)
+        return k
+
+
+def _x64(k) -> bool:
+    return getattr(k, "x64", True)
+
+
+def float_dtype(k) -> torch.dtype:
+    """The float dtype of a draw from ``k`` that names none."""
+    return torch.float64 if _x64(k) else torch.float32
+
+
+def int_dtype(k) -> torch.dtype:
+    """The integer dtype of a draw from ``k`` that names none."""
+    return torch.int64 if _x64(k) else torch.int32
 
 
 def _rotl(v, r: int):
@@ -66,20 +101,22 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def key(seed: int) -> Key:
-    """``jax.random.key(seed)``'s key data for a 64-bit integer seed."""
+def key(seed: int, x64: bool = True) -> Key:
+    """``jax.random.key(seed)``'s key data for a 64-bit integer seed; its
+    draws default to float64 / int64 (``x64``) or float32 / int32."""
     seed &= (1 << 64) - 1
-    return (seed >> 32, seed & MASK32)
+    return Key((seed >> 32, seed & MASK32), x64)
 
 
 def fold_in(k: Key, data: int) -> Key:
     """``jax.random.fold_in(k, data)``: ``data`` wraps to uint32 first."""
-    return threefry2x32(k[0], k[1], 0, int(data) & MASK32)
+    return Key(threefry2x32(k[0], k[1], 0, int(data) & MASK32), _x64(k))
 
 
 def split(k: Key, num: int = 2) -> list:
     """``jax.random.split(k, num)`` as a list of ``num`` keys."""
-    return [threefry2x32(k[0], k[1], 0, i) for i in range(num)]
+    return [Key(threefry2x32(k[0], k[1], 0, i), _x64(k))
+            for i in range(num)]
 
 
 def _counters(shape, device):
@@ -102,10 +139,11 @@ def random_bits(k: Key, bit_width: int, shape, device=None) -> torch.Tensor:
     raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
 
 
-def uniform(k: Key, shape=(), dtype=torch.float32,
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform(k, shape, dtype)`` on ``[0, 1)``."""
+def uniform(k: Key, shape=(), dtype=None, device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, dtype)`` on ``[0, 1)``; ``dtype``
+    None is the key's float dtype."""
     shape = tuple(shape)
+    dtype = dtype or float_dtype(k)
     if dtype == torch.float32:
         bits = random_bits(k, 32, shape, device)
         fbits = (bits >> 9) | 0x3F800000          # 23 mantissa bits, 1.0
@@ -118,19 +156,22 @@ def uniform(k: Key, shape=(), dtype=torch.float32,
     raise TypeError(f"uniform: float32 or float64 only, got {dtype}")
 
 
-def bernoulli(k: Key, p: float, shape=(), dtype=torch.float64,
+def bernoulli(k: Key, p: float, shape=(), dtype=None,
               device=None) -> torch.Tensor:
     """``jax.random.bernoulli(k, p, shape)`` with ``p`` of dtype ``dtype``
-    (float64 is what a Python float becomes under ``jax_enable_x64``)."""
+    (None: the key's float dtype, what a Python ``p`` becomes in jax)."""
+    dtype = dtype or float_dtype(k)
     u = uniform(k, shape, dtype, device)
     return u < torch.tensor(p, dtype=dtype, device=u.device)
 
 
-def randint(k: Key, shape, minval: int, maxval: int, dtype=torch.int64,
+def randint(k: Key, shape, minval: int, maxval: int, dtype=None,
             device=None) -> torch.Tensor:
     """``jax.random.randint(k, shape, minval, maxval, dtype)`` for int32
     and int64 (``_randint``: two draws, the high one reduced through
-    ``2**nbits mod span``). ``maxval`` must not exceed the dtype's range."""
+    ``2**nbits mod span``); ``dtype`` None is the key's integer dtype.
+    ``maxval`` must not exceed the dtype's range."""
+    dtype = dtype or int_dtype(k)
     nbits = {torch.int32: 32, torch.int64: 64}[dtype]
     k1, k2 = split(k)
     span = maxval - minval if maxval > minval else 1
@@ -151,6 +192,20 @@ def _mod64(w_hi: torch.Tensor, w_lo: torch.Tensor, span: int) -> torch.Tensor:
     if not 0 < span < 2 ** 31:
         raise ValueError(f"randint span must be in (0, 2**31), got {span}")
     return ((w_hi % span) * (2 ** 32 % span) + w_lo % span) % span
+
+
+def permutation(k: Key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(k, n)``: a shuffle of ``arange(n)`` (int64)
+    by stable sorts on fresh 32-bit keys, as many rounds as jax's
+    ``_shuffle`` runs for ``n`` (0 at n 1, 1 up to 1625, 2 up to
+    2,642,245, then 3)."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(MASK32))
+    for _ in range(rounds):
+        k, sub = split(k)
+        bits = random_bits(sub, 32, (n,), device)   # unsigned, in int64
+        x = x[torch.sort(bits, stable=True).indices]
+    return x
 
 
 def categorical(k: Key, logits: torch.Tensor) -> torch.Tensor:

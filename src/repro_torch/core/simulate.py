@@ -57,10 +57,11 @@ def simulate_quadratic(algo, problem: QuadraticProblem, rounds: int, *,
     def err(state) -> torch.Tensor:
         return torch.linalg.norm(algo.global_params(state) - x_star)
 
+    err0 = err(state0)  # a cohort round consumes its input state
     final_state, ys = run_rounds(algo, grad_fn, state0, batches,
                                  rounds=rounds, metric_fn=err)
     errs, telemetry = split_metrics(algo, ys)
-    errors = torch.cat([err(state0)[None], errs])
+    errors = torch.cat([err0[None], errs])
     n_bytes = ((algo.vectors_up + algo.vectors_down) * problem.dim * 4
                * problem.n_clients)
     return SimResult(errors=errors, state=final_state,

@@ -408,6 +408,12 @@ class Telemetry:
             if err_clients is not None and self.wants_sketch("compress_err"):
                 out.update(sketch_values("compress_err", err_clients, self,
                                          ids=cohort_ids))
+            if self.wants_sketch("age"):
+                split = getattr(algo, "_split", None)
+                dstate = split(state)[3] if split is not None else None
+                if dstate is not None:
+                    out.update(sketch_values(
+                        "age", dstate.age.to(torch.float32), self))
         if self.metrics != "auto":
             out = {k: out[k] for k in self.metrics if k in out}
         return out

@@ -42,11 +42,22 @@ aggregating step calls ``reduce_and_advance``, the one place topology
 state moves. ``TopoState.k`` is a Python int, like the engine's step
 counter, so every key of a round derives on the host.
 
+Cohort execution (``with_cohort``): ``reduce_cohort(tree, w, idx,
+n_clients, tstate)`` reduces GATHERED cohort rows; a hierarchy routes each
+row to the first-tier aggregator of its GLOBAL id ``idx`` and sizes its
+tiers from the full population, so the tier memory keeps its shapes and an
+edge aggregator with no cohort member weighs zero. Gossip has no server to
+sample a cohort (``supports_cohort`` False).
+
 Accounting: ``client_up_mult`` (gossip: one message per directed edge),
 ``aggregator_hops`` (hierarchy tiers; upward hops at
 ``tier_bits_per_coord``) and ``broadcast_mult`` (0 for gossip), folded in
-by ``core/comm.py``. Cohort execution (``reduce_cohort``) comes with the
-cohort slice and raises here.
+by ``core/comm.py``.
+
+Draw dtypes: the resampled graph's Bernoulli draws and a tier
+compressor's keys take the dtype of the weights ``w`` the engine passes
+(its canonical float: float64 with ``x64``, the reference's under
+``jax_enable_x64``, else float32).
 """
 
 from __future__ import annotations
@@ -74,9 +85,6 @@ _TOPO_KEY_TAG = 0x70_70
 
 #: domain-separation tag (+ tier index) for tier-compression dither keys.
 _TIER_KEY_TAG = 0x71_E5
-
-_COHORT_SLICE = "the cohort slice (ROADMAP Queue 1 item 2)"
-
 
 class TopoState(NamedTuple):
     """Per-run topology state in the ``EngineState`` extras (after the
@@ -128,14 +136,19 @@ class Topology:
         topology state. Returns ``(aggregate, next_tstate)``."""
         return self.reduce(tree, w, tstate), self.advance(tstate)
 
-    def reduce_cohort(self, tree, w, idx, n_clients, tstate=None):
+    def reduce_cohort(self, tree, w: torch.Tensor, idx: torch.Tensor,
+                      n_clients: int, tstate: TopoState | None = None):
+        """Reduce a GATHERED ``[cohort, ...]`` tree under cohort-slot
+        weights ``w``; ``idx`` holds the cohort's GLOBAL client ids (a
+        hierarchy routes each member to its own edge aggregator). Only
+        topologies with ``supports_cohort`` implement it."""
         raise NotImplementedError(
-            f"{type(self).__name__}.reduce_cohort (cohort execution) is not "
-            f"yet ported to PyTorch: it comes with {_COHORT_SLICE}")
+            f"{type(self).__name__} does not support cohort execution")
 
     def reduce_cohort_and_advance(self, tree, w, idx, n_clients,
                                   tstate=None):
-        return self.reduce_cohort(tree, w, idx, n_clients, tstate)
+        return (self.reduce_cohort(tree, w, idx, n_clients, tstate),
+                self.advance(tstate))
 
     # ----------------------------------------------------------- accounting
     def client_up_mult(self, n_clients: int) -> float:
@@ -173,6 +186,10 @@ class Star(Topology):
 
     def reduce(self, tree, w, tstate=None):
         del tstate
+        return weighted_client_mean(tree, w)
+
+    def reduce_cohort(self, tree, w, idx, n_clients, tstate=None):
+        del idx, n_clients, tstate
         return weighted_client_mean(tree, w)
 
 
@@ -264,19 +281,26 @@ class Hierarchical(Topology):
         """Contiguous near-equal block assignment ``[n_in] -> n_out``."""
         return [i * n_out // n_in for i in range(n_in)]
 
-    def _tier_key(self, t_i: int, k: int):
-        return prng.fold_in(prng.fold_in(prng.key(self.seed),
+    def _tier_key(self, t_i: int, k: int, x64: bool = True):
+        return prng.fold_in(prng.fold_in(prng.key(self.seed, x64),
                                          _TIER_KEY_TAG + t_i), k)
 
-    def _reduce_impl(self, tree, w, tstate):
-        """The tier walk; returns ``(aggregate, new tier memory)``."""
-        n = w.shape[0]
+    def _reduce_impl(self, tree, w, tstate, seg0=None, n_total=None):
+        """The tier walk; returns ``(aggregate, new tier memory)``.
+        ``seg0`` / ``n_total`` are the cohort entry: ``tree`` / ``w`` are
+        cohort rows, ``seg0`` (a host list) maps each row to the first-tier
+        aggregator of its GLOBAL id, and the tiers are sized from
+        ``n_total``, so the tier shapes and memory are those of the full
+        population and an aggregator with no cohort member weighs zero."""
+        n = n_total if n_total is not None else w.shape[0]
         comp = self.tier_compression
         k = tstate.k if tstate is not None else 0
+        x64 = w.dtype == torch.float64
         vals, wt, cur = tree, w, n
         new_mem = []
         for t_i, g in enumerate(self._tiers(n)):
-            ids = self._segments(cur, g)
+            ids = (seg0 if t_i == 0 and seg0 is not None
+                   else self._segments(cur, g))
             wsum = _segment_sum(wt, ids, g)
             denom = torch.where(wsum > 0, wsum, 1.0)
 
@@ -289,7 +313,8 @@ class Hierarchical(Topology):
 
             vals = tree_map(pmean, vals)
             if comp is not None:
-                key = self._tier_key(t_i, k) if comp.requires_key else None
+                key = (self._tier_key(t_i, k, x64) if comp.requires_key
+                       else None)
                 extra = None
                 if comp.stateful:
                     extra = (tstate.tier[t_i]
@@ -310,14 +335,39 @@ class Hierarchical(Topology):
     def reduce(self, tree, w, tstate=None):
         return self._reduce_impl(tree, w, tstate)[0]
 
-    def reduce_and_advance(self, tree, w, tstate=None):
-        out, mem = self._reduce_impl(tree, w, tstate)
+    def _advanced(self, tstate, mem):
         if not self.stateful:
-            return out, None
+            return None
         k = tstate.k if tstate is not None else 0
         tier = mem if self.needs_msg_shapes else (
             tstate.tier if tstate is not None else None)
-        return out, TopoState(k=k + 1, tier=tier)
+        return TopoState(k=k + 1, tier=tier)
+
+    def reduce_and_advance(self, tree, w, tstate=None):
+        out, mem = self._reduce_impl(tree, w, tstate)
+        return out, self._advanced(tstate, mem)
+
+    # -------------------------------------------------------------- cohort
+    def _seg0(self, idx: torch.Tensor, n_clients: int):
+        """Each cohort member's GLOBAL first-tier aggregator id (a host
+        list): the full population's segment table at the cohort's ids."""
+        tiers = self._tiers(n_clients)
+        if not tiers:
+            return None
+        table = self._segments(n_clients, tiers[0])
+        return [table[i] for i in idx.tolist()]
+
+    def reduce_cohort(self, tree, w, idx, n_clients, tstate=None):
+        return self._reduce_impl(tree, w, tstate,
+                                 seg0=self._seg0(idx, n_clients),
+                                 n_total=n_clients)[0]
+
+    def reduce_cohort_and_advance(self, tree, w, idx, n_clients,
+                                  tstate=None):
+        out, mem = self._reduce_impl(tree, w, tstate,
+                                     seg0=self._seg0(idx, n_clients),
+                                     n_total=n_clients)
+        return out, self._advanced(tstate, mem)
 
     # ----------------------------------------------------------- accounting
     def aggregator_hops(self, n_clients: int) -> tuple:
@@ -464,20 +514,22 @@ class Mixing(Topology):
             val = self._cache[key] = build()
         return val
 
-    def _adjacency(self, tstate, n: int, device) -> torch.Tensor:
+    def _adjacency(self, tstate, n: int, device, x64: bool) -> torch.Tensor:
         """The round's resampled graph: ``fold_in(fold_in(key(seed),
-        TAG), k)`` Bernoulli draws of the upper triangle, symmetrized."""
-        key = prng.fold_in(prng.fold_in(prng.key(self.seed), _TOPO_KEY_TAG),
-                           tstate.k)
-        upper = torch.triu(prng.bernoulli(key, self.p, (n, n), torch.float64,
-                                          device), diagonal=1)
+        TAG), k)`` Bernoulli draws of the upper triangle (float64 with
+        ``x64``, else float32), symmetrized."""
+        key = prng.fold_in(prng.fold_in(prng.key(self.seed, x64),
+                                        _TOPO_KEY_TAG), tstate.k)
+        upper = torch.triu(prng.bernoulli(key, self.p, (n, n), device=device),
+                           diagonal=1)
         return upper | upper.T
 
-    def _matrix(self, tstate, n: int, dtype, device) -> torch.Tensor:
+    def _matrix(self, tstate, n: int, dtype, device,
+                x64: bool = True) -> torch.Tensor:
         if not self.resample:
             return self._cached(("W", dtype, device), lambda: torch.tensor(
                 self.w, dtype=dtype, device=device))
-        adj = self._adjacency(tstate, n, device)
+        adj = self._adjacency(tstate, n, device, x64)
         deg = torch.sum(adj, dim=1)
         mw = 1.0 / (1.0 + torch.maximum(deg[:, None], deg[None, :]).to(dtype))
         W = torch.where(adj, mw, 0.0)
@@ -504,7 +556,7 @@ class Mixing(Topology):
     def _resampled_tables(self, tstate, n: int, dtype, device):
         """The padded neighbor tables of the round's resampled graph, built
         on the device from the same draws as the dense ``_matrix``."""
-        adj = self._adjacency(tstate, n, device)
+        adj = self._adjacency(tstate, n, device, dtype == torch.float64)
         deg = torch.sum(adj, dim=1)
         # a node has at most n-1 neighbors: larger caps clamp.
         cap = min(self.max_degree or n - 1, n - 1)
@@ -558,7 +610,8 @@ class Mixing(Topology):
             return self._reduce_sparse(tree, w, tstate)
 
         def mean_leaf(a):
-            W = self._matrix(tstate, n, a.dtype, a.device)
+            W = self._matrix(tstate, n, a.dtype, a.device,
+                             w.dtype == torch.float64)
             Ww = W * w.to(a.dtype)[None, :]          # row i: W_ij * w_j
             denom = torch.sum(Ww, dim=1)
             denom = torch.where(denom > 0, denom, 1.0)

@@ -23,11 +23,14 @@ What a deployment needs beyond the algorithm's round:
   ``sinks=``, the per-round telemetry of each segment drained into the
   sinks (a run manifest first).
 
-Works with any engine algorithm (FedCET plain, compressed, sampled or on
-a topology through the ``with_*`` factories, FedAvg, SCAFFOLD, FedTrack,
-FedLin, FedProx, FedDyn, NIDS) and any model exposing ``loss(params,
-batch)``. It runs on ``device``: ``cuda`` unless the caller passes
-another; parameters, batches and restored states are moved there.
+Works with any engine algorithm (FedCET plain, compressed, sampled,
+delayed, on a cohort or on a topology through the ``with_*`` factories,
+FedAvg, SCAFFOLD, FedTrack, FedLin, FedProx, FedDyn, NIDS) and any model
+exposing ``loss(params, batch)``. It runs on ``device``: ``cuda`` unless
+the caller passes another; parameters, batches and restored states are
+moved there. Random draws take the algorithm's own ``x64`` dtypes: an
+LM algorithm is built with ``x64=False`` (float32 / int32, the
+reference's dtypes on its LM runs, which leave ``jax_enable_x64`` off).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ billed bit-true from the attached compressor and topology
 (``core/comm.py``: gossip bills one message per directed edge, a
 hierarchy its aggregator tiers).
 
-The synchronous round takes the reference's ``compression`` (a
+The round takes the reference's ``compression`` (a
 ``core/compressors.py`` spec: ``shift:q8``, ``q8``, ``randk:0.25``,
 ``ef:topk:0.3+bf16``, ...) or ``compression_plan`` (per-leaf
 ``pattern:spec`` rules, ``embed*:q12,ln*:bf16,*:shift:q6``, or a ready
@@ -26,14 +26,18 @@ as ``jsonl:run.jsonl,hist:48``) with the profiler window
 (``trace_rounds``, ``trace_dir``). With ``ckpt_dir`` the full round state
 is saved every 50 rounds (``checkpoint/ckpt.py``, the reference's
 ``.npz`` layout; like the reference, the run saves and does not resume:
-``fed/trainer.py:FedTrainer.maybe_resume`` resumes). The other options
-(delay, cohort) raise "not yet ported" when set to anything but their
-default. The mesh launcher (``make_plan``,
+``fed/trainer.py:FedTrainer.maybe_resume`` resumes). Random draws take
+float32 / int32, the reference's dtypes on this entry point (it runs with
+``jax_enable_x64`` off). The mesh launcher (``make_plan``,
 ``lower_train_step``) waits for a multi-GPU slice.
 
 Run as a script:
     python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
         --compression shift:q8 --arena
+    python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
+        --compression shift:q8 --arena --delay rr:2 --stale-policy last
+    python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
+        --clients 16 --batch 4 --cohort block:4 --compression shift:q8 --arena
     python -m repro_torch.launch.train --arch fedlm-100m --steps 100 \
         --device cpu --ckpt-dir ckpts
     python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
@@ -72,10 +76,6 @@ SCENARIO_DEFAULTS = {
     "arena": False, "telemetry": None, "trace_rounds": None,
     "trace_dir": "profile_trace", "ckpt_dir": None,
 }
-#: the options the port runs; the others accept their default only.
-PORTED = ("compression", "compression_plan", "plan_adapt", "participation",
-          "arena", "topology", "tier_compression", "telemetry",
-          "trace_rounds", "trace_dir", "ckpt_dir")
 #: rounds between the checkpoints of a run with ``ckpt_dir``.
 CKPT_EVERY = 50
 
@@ -90,10 +90,10 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     caller passes another; with no card and no explicit device it raises).
 
     ``scenario`` takes ``compression``, ``compression_plan``,
-    ``plan_adapt``, ``participation``, ``arena``, ``topology``,
-    ``tier_compression``, ``telemetry``, ``trace_rounds``, ``trace_dir``
-    and ``ckpt_dir`` (see the module docstring); the reference's other
-    options raise "not yet ported" unless at their default. With
+    ``plan_adapt``, ``participation``, ``delay``, ``stale_policy``,
+    ``cohort``, ``arena``, ``topology``, ``tier_compression``,
+    ``telemetry``, ``trace_rounds``, ``trace_dir`` and ``ckpt_dir`` (see
+    the module docstring). With
     ``plan_adapt > 1`` an ``AdaptivePlan`` reads the last round's
     ``compress_err`` at each segment end; when it tightens, the new plan
     replaces the attached one, the runner is rebuilt and the state carries
@@ -122,14 +122,10 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     their losses and telemetry), measured after the device has finished
     it. ``callback(round, loss, comm_bytes, state)`` runs after each
     logged round."""
-    for k, v in scenario.items():
+    for k in scenario:
         if k not in SCENARIO_DEFAULTS:
             raise TypeError(f"run_training() got an unexpected option {k!r}")
-        if k not in PORTED and v != SCENARIO_DEFAULTS[k]:
-            raise NotImplementedError(
-                f"{k}={v!r} is not yet ported to PyTorch (the port runs "
-                f"the synchronous round: {k}={SCENARIO_DEFAULTS[k]!r})")
-    opt = {**{k: SCENARIO_DEFAULTS[k] for k in PORTED}, **scenario}
+    opt = {**SCENARIO_DEFAULTS, **scenario}
     telemetry = opt["telemetry"]
     device = resolve_device(device)
     if device.type == "cuda":
@@ -146,11 +142,12 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
     algo = FedScenario(compression=opt["compression"],
                        compression_plan=opt["compression_plan"],
                        participation=opt["participation"],
-                       topology=opt["topology"],
+                       delay=opt["delay"], stale_policy=opt["stale_policy"],
+                       cohort=opt["cohort"], topology=opt["topology"],
                        tier_compression=opt["tier_compression"],
                        arena=opt["arena"], telemetry=telemetry or False,
                        seed=seed).apply(
-        FedCET(alpha=alpha, c=c, tau=tau, n_clients=n_clients))
+        FedCET(alpha=alpha, c=c, tau=tau, n_clients=n_clients, x64=False))
     ds = make_hetero_lm_dataset(cfg.vocab_size, n_clients, seq_len, batch,
                                 heterogeneity=heterogeneity, seed=seed,
                                 device=device)
@@ -210,10 +207,13 @@ def run_training(arch: str, *, steps: int = 100, tau: int = 2,
                     "seq_len": seq_len, "compression": opt["compression"],
                     "compression_plan": str(opt["compression_plan"]),
                     "plan_adapt": opt["plan_adapt"],
-                    "participation": opt["participation"], "delay": "none",
-                    "stale_policy": "last", "topology": opt["topology"],
+                    "participation": opt["participation"],
+                    "delay": opt["delay"],
+                    "stale_policy": opt["stale_policy"],
+                    "topology": opt["topology"],
                     "tier_compression": opt["tier_compression"],
-                    "cohort": "none", "arena": opt["arena"], "seed": seed},
+                    "cohort": str(opt["cohort"]), "arena": opt["arena"],
+                    "seed": seed},
             monitors=monitors, leaf_info=leaf_info))
 
     history = {"round": [], "loss": [], "comm_bytes": [], "seconds": [],
@@ -343,6 +343,15 @@ def main(argv=None):
                          "--telemetry)")
     ap.add_argument("--participation", type=float, default=1.0,
                     help="per-round Bernoulli client participation rate")
+    ap.add_argument("--delay", default="none",
+                    help="asynchronous rounds: none | fixed:k | rr:k | "
+                         "geom:p (delayed uplinks, server message buffer)")
+    ap.add_argument("--stale-policy", default="last",
+                    help="stale aggregation: drop | last | poly:a")
+    ap.add_argument("--cohort", default="none",
+                    help="O(cohort) rounds: none | <m> | uniform:<m> | "
+                         "block:<m> | rr:<m>, with an optional :dense "
+                         "lowering")
     ap.add_argument("--arena", action="store_true",
                     help="pack the client store into the contiguous "
                          "[clients, rows, 1024] parameter arena (fused "
@@ -369,12 +378,6 @@ def main(argv=None):
     ap.add_argument("--trace-dir", default="profile_trace")
     ap.add_argument("--ckpt-dir", default=None,
                     help="save the round state here every 50 rounds")
-    for k, v in SCENARIO_DEFAULTS.items():
-        if k in PORTED:
-            continue
-        ap.add_argument("--" + k.replace("_", "-"), default=v,
-                        type=type(v) if v is not None else None,
-                        help="not yet ported: only the default is accepted")
     args = vars(ap.parse_args(argv))
     scenario = {k: args.pop(k) for k in SCENARIO_DEFAULTS}
     hist = run_training(

@@ -9,9 +9,8 @@ BITWISE equal to uniform ``with_compression`` with that spec (same
 ``fold_in(key, i)`` per-leaf keys, the same wrapper math leaf by leaf,
 the same extras, so checkpoints interchange), on the per-leaf and the
 arena lowering. Each plan run is also held to the reference's run of the
-same plan within 1e-12. The reference's composed stack adds a block
-cohort, which the port has not yet (``ROADMAP.md`` Queue 1): here it is
-participation x compression x arena.
+same plan within 1e-12, on the reference's composed stack:
+participation x compression x a block cohort, and the arena.
 
 Leaf order: trees crossed over from the reference arrive with sorted
 keys (JAX's flatten order). A model the port initializes itself
@@ -33,13 +32,14 @@ from repro_torch.core.compressors import (AdaptivePlan, Bf16, Chain,
                                           CompressionPlan, ErrorFeedback,
                                           RandK, Shifted, StochasticQuant,
                                           TopK, parse_plan)
-from repro_torch.core.engine import (run_rounds, with_arena, with_compression,
+from repro_torch.core.engine import (CohortSpec, run_rounds, with_arena,
+                                     with_cohort, with_compression,
                                      with_participation)
 from repro_torch.core.fedcet import FedCET
 from repro_torch.data.quadratic import QuadraticProblem
 from repro_torch.utils.tree import tree_leaves, tree_map
 
-N, TAU, ROUNDS = 24, 2, 4
+N, M, TAU, ROUNDS = 24, 7, 2, 4
 SPLIT = 5  # params live as a 2-leaf dict so per-leaf rules mean something
 TOL = 1e-12
 ROOT = Path(__file__).resolve().parents[1]
@@ -86,11 +86,15 @@ def _algos(pkg=None):
 
 
 def _composed(algo, compressor, pkg=None):
-    """Participation x compression, as the reference's composed stack
-    (without its cohort)."""
+    """Participation x compression x a block cohort of ``M``, the
+    reference's composed stack."""
     wp = with_participation if pkg is None else pkg.with_participation
     wc = with_compression if pkg is None else pkg.with_compression
-    return wc(wp(algo, 0.8, seed=3), compressor=compressor, seed=5)
+    wco = with_cohort if pkg is None else pkg.with_cohort
+    spec = (CohortSpec if pkg is None else pkg.CohortSpec)(size=M,
+                                                           selector="block")
+    return wco(wc(wp(algo, 0.8, seed=3), compressor=compressor, seed=5),
+               spec, seed=7)
 
 
 def _run(algo, rounds=ROUNDS, state=None):

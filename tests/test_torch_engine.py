@@ -94,3 +94,139 @@ def test_stacked_and_repeated_round_loops_agree():
                                                                    stacked)
     assert torch.equal(e_rep, e_stk) and e_rep.shape == (3,)
     assert torch.equal(s_rep.x, s_stk.x) and s_rep.t == s_stk.t == 6
+
+
+# ------------------------------------- mirrors of tests/test_engine.py
+@pytest.fixture(scope="module")
+def problem():
+    _jax()
+    from repro.data.quadratic import make_quadratic_problem as jmake
+
+    from repro_torch.data.quadratic import QuadraticProblem
+
+    jp = jmake(0)
+    return QuadraticProblem(b=torch.tensor(np.asarray(jp.b)),
+                            m=torch.tensor(np.asarray(jp.m)))
+
+
+def _base(problem, tau=2):
+    from repro_torch.core import max_weight_c
+    from repro_torch.core.lr_search import lr_search
+
+    alpha = lr_search(problem.mu, problem.L, tau)
+    return FedCET(alpha=alpha, c=max_weight_c(problem.mu, alpha), tau=tau,
+                  n_clients=problem.n_clients)
+
+
+def _sim(algo, problem, rounds):
+    from repro_torch.core.simulate import simulate_quadratic
+
+    return simulate_quadratic(algo, problem, rounds, device="cpu")
+
+
+def test_identity_transforms_are_exact_noops(problem):
+    """Mirror of ``test_identity_transforms_are_exact_noops``."""
+    from repro_torch.core.engine import with_compression, with_participation
+    from repro_torch.core.fedcet_compressed import FedCETCompressed
+    from repro_torch.core.participation import FedCETPartial
+
+    base = _base(problem)
+    assert with_participation(base, 1.0) is base
+    assert with_compression(base, k_frac=1.0, quantize=False) is base
+    part = FedCETPartial(alpha=base.alpha, c=base.c, tau=2,
+                         n_clients=problem.n_clients, participation=1.0)
+    comp = FedCETCompressed(alpha=base.alpha, c=base.c, tau=2,
+                            n_clients=problem.n_clients, k_frac=1.0)
+    ref = _sim(base, problem, 20).errors
+    for algo in (part, comp):
+        assert torch.equal(_sim(algo, problem, 20).errors, ref)
+
+
+def test_composed_other_order_and_drift_invariant(problem):
+    """Mirror of ``test_composed_other_order_and_drift_invariant``:
+    participation over top-k compression keeps ``sum_i d_i = 0``."""
+    from repro_torch.core.engine import with_compression, with_participation
+
+    algo = with_participation(with_compression(_base(problem), k_frac=0.5),
+                              0.7, seed=11)
+    inner, _extras = _sim(algo, problem, 60).state
+    np.testing.assert_allclose(torch.mean(inner.d, dim=0).numpy(), 0.0,
+                               atol=1e-10)
+
+
+def test_composed_up_frac_accounting(problem):
+    """Mirror of ``test_composed_up_frac_accounting``."""
+    from repro_torch.core import FedLin, FedTrack
+    from repro_torch.core.engine import with_compression
+
+    n = problem.n_clients
+    assert FedLin(alpha=0.01, tau=2, n_clients=n, k_frac=0.1).up_frac \
+        == pytest.approx(0.6)
+    assert with_compression(FedTrack(alpha=0.01, tau=2, n_clients=n),
+                            quantize=True).up_frac == pytest.approx(0.75)
+    assert with_compression(FedCET(alpha=0.01, c=0.3, tau=2, n_clients=n),
+                            k_frac=0.3).up_frac == pytest.approx(0.6)
+
+
+def test_stale_checkpoint_layout_fails_loudly(tmp_path, problem):
+    """Mirror of ``test_stale_checkpoint_layout_fails_loudly``: the seed's
+    (x, d, e, t) order does not restore transposed into (x, d, t, e)."""
+    from repro_torch.checkpoint.ckpt import load_pytree, save_pytree
+    from repro_torch.core.engine import with_compression
+
+    algo = with_compression(_base(problem), quantize=True)
+    state = _sim(algo, problem, 2).state
+    inner, (e,) = state
+    path = str(tmp_path / "old.npz")
+    save_pytree(path, (inner.x, inner.d, e, inner.t))
+    with pytest.raises(ValueError, match="incompatible"):
+        load_pytree(path, state)
+
+
+def test_composed_state_checkpoint_roundtrip(tmp_path, problem):
+    """Mirror of ``test_composed_state_checkpoint_roundtrip``."""
+    from repro_torch.checkpoint.ckpt import load_pytree, save_pytree
+    from repro_torch.core.engine import with_compression
+    from repro_torch.utils.tree import tree_leaves
+
+    state = _sim(with_compression(_base(problem), quantize=True), problem,
+                 3).state
+    path = str(tmp_path / "state.npz")
+    save_pytree(path, state)
+    for a, b in zip(tree_leaves(state), tree_leaves(load_pytree(path,
+                                                                state))):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def test_participation_step_counter_advances_tau_per_round(problem):
+    """Mirror of ``test_participation_step_counter_advances_tau_per_round``."""
+    from repro_torch.core.participation import FedCETPartial
+
+    base = _base(problem)
+    algo = FedCETPartial(alpha=base.alpha, c=base.c, tau=2,
+                         n_clients=problem.n_clients, participation=0.6)
+    assert _sim(algo, problem, 7).state.t == 7 * 2
+
+
+def test_participation_mask_key_split():
+    """Mirror of ``test_participation_mask_key_split``: at rate 0 the
+    forced client is uniform over 300 keys."""
+    from repro_torch.core import prng
+    from repro_torch.core.engine import participation_mask
+
+    chosen = set()
+    for s in range(300):
+        idx = torch.nonzero(participation_mask(prng.key(s), 10, 0.0))
+        assert idx.numel() == 1
+        chosen.add(int(idx[0, 0]))
+    assert chosen == set(range(10))
+
+
+def test_participation_masks_deterministic_per_round():
+    """Mirror of ``test_participation_masks_deterministic_per_round``."""
+    from repro_torch.core import prng
+    from repro_torch.core.engine import participation_mask
+
+    key = prng.fold_in(prng.key(5), 12)
+    assert torch.equal(participation_mask(key, 8, 0.4),
+                       participation_mask(key, 8, 0.4))

@@ -9,6 +9,11 @@ in as numpy, in float64 on the CPU.
 * Algorithm 1 (``lr_search``), ``contraction_factors`` and ``max_weight_c``
   equal the reference exactly (the same float arithmetic);
 * FedCET reaches the exact optimum: error < 1e-9 at 400 rounds.
+* Mirrors of the theory tests of ``tests/test_fedcet_quadratic.py``, each
+  named in its docstring and held to its bounds: the gradient's closed
+  form, ``x*`` stationary, the measured rate under Corollary 1's rho, the
+  fixed point of Lemma 2, one vector each way, convergence across tau,
+  exactness with heterogeneous Hessians and with homogeneous data.
 """
 
 import dataclasses
@@ -20,7 +25,9 @@ import torch
 from repro_torch.core import FedCET, FedCETLiteral, max_weight_c
 from repro_torch.core.lr_search import contraction_factors, lr_search
 from repro_torch.core.simulate import simulate_quadratic
-from repro_torch.data.quadratic import QuadraticProblem, make_quadratic_problem
+from repro_torch.data.quadratic import (QuadraticProblem,
+                                        make_hetero_hessian_problem,
+                                        make_quadratic_problem)
 
 
 def _jax():
@@ -132,3 +139,106 @@ def test_own_problem_generator_converges():
     assert float(p.b.abs().max()) <= 10.0
     res = simulate_quadratic(_fedcet(p), p, 150, device="cpu")
     assert res.final_error < 1e-3 * float(res.errors[0])
+
+
+# ------------------------------- mirrors of tests/test_fedcet_quadratic.py
+def _batch(port, i):
+    return {"b": port.b[i], "m": port.m[i]}
+
+
+def test_gradient_matches_closed_form(problems):
+    """Mirror of ``test_gradient_matches_closed_form``: autograd of every
+    client's loss equals the closed form (1e-5, the reference's bound)."""
+    port = problems[1]
+    x = torch.randn(port.dim, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(1))
+    for i in range(port.n_clients):
+        np.testing.assert_allclose(
+            torch.func.grad(port.client_loss)(x, _batch(port, i)).numpy(),
+            port.client_grad(x, _batch(port, i)).numpy(),
+            rtol=1e-5, atol=1e-5)
+
+
+def test_x_star_is_stationary(problems):
+    """Mirror of ``test_x_star_is_stationary``: the global loss (the mean
+    of the client losses) has zero gradient at ``x*`` (1e-10)."""
+    port = problems[1]
+
+    def global_loss(x):
+        return torch.mean(torch.stack([port.client_loss(x, _batch(port, i))
+                                       for i in range(port.n_clients)]))
+
+    np.testing.assert_allclose(
+        torch.func.grad(global_loss)(port.x_star).numpy(), 0.0, atol=1e-10)
+
+
+def test_linear_rate_matches_theory(problems, port_run):
+    """Mirror of ``test_linear_rate_matches_theory``: Algorithm 1's alpha
+    gives rho < 1, and the geometric-mean contraction over rounds 10-100
+    is below sqrt(rho) + 1e-3 and below 1."""
+    port = problems[1]
+    algo = _fedcet(port)
+    cf = contraction_factors(algo.alpha, port.mu, port.L, algo.tau,
+                             port.n_clients)
+    assert cf.converges, cf
+    window = port_run.errors.numpy()[10:100]
+    measured = (window[-1] / window[0]) ** (1.0 / (len(window) - 1))
+    assert measured < np.sqrt(cf.rho) + 1e-3, (measured, cf.rho)
+    assert measured < 1.0
+
+
+def test_fixed_point_characterization(problems):
+    """Mirror of ``test_fixed_point_characterization`` (Lemma 2): after
+    600 rounds every client holds x* (1e-7) and d_i = -grad f_i(x*)
+    (1e-6)."""
+    port = problems[1]
+    res = simulate_quadratic(_fedcet(port), port, 600, device="cpu")
+    x_star = port.x_star
+    for i in range(port.n_clients):
+        np.testing.assert_allclose(res.state.x[i].numpy(), x_star.numpy(),
+                                   atol=1e-7)
+        gi = port.client_grad(x_star, _batch(port, i))
+        np.testing.assert_allclose(res.state.d[i].numpy(), -gi.numpy(),
+                                   atol=1e-6)
+
+
+def test_d_never_transmitted_one_vector_comm(problems):
+    """Mirror of ``test_d_never_transmitted_one_vector_comm`` (Remark 2)."""
+    algo = _fedcet(problems[1])
+    assert algo.vectors_up == 1 and algo.vectors_down == 1
+
+
+@pytest.mark.parametrize("tau", [1, 2, 4, 8])
+def test_convergence_across_tau(problems, tau):
+    """Mirror of ``test_convergence_across_tau``: < 1e-6 at 200 tau
+    rounds."""
+    port = problems[1]
+    res = simulate_quadratic(_fedcet(port, tau), port, 200 * tau,
+                             device="cpu")
+    assert res.final_error < 1e-6, (tau, res.final_error)
+
+
+def test_exact_convergence_heterogeneous_hessians():
+    """Mirror of ``test_exact_convergence_heterogeneous_hessians``: the
+    reference's ``make_hetero_hessian_problem(7)``, < 1e-9 at 3000
+    rounds."""
+    _jax()
+    from repro.data.quadratic import make_hetero_hessian_problem as jmake
+
+    jp = jmake(7)
+    p = QuadraticProblem(b=torch.tensor(np.asarray(jp.b)),
+                         m=torch.tensor(np.asarray(jp.m)))
+    res = simulate_quadratic(_fedcet(p), p, 3000, device="cpu")
+    assert res.final_error < 1e-9, res.final_error
+    own = make_hetero_hessian_problem(7)
+    assert simulate_quadratic(_fedcet(own), own, 3000,
+                              device="cpu").final_error < 1e-9
+
+
+def test_homogeneous_data_still_converges():
+    """Mirror of ``test_homogeneous_data_still_converges``: identical
+    client data, < 1e-10 at 300 rounds."""
+    p = make_quadratic_problem(3, n_clients=4)
+    p = QuadraticProblem(b=p.b[:1].expand(p.b.shape).contiguous(), m=p.m)
+    res = simulate_quadratic(_fedcet(p), p, 300, device="cpu")
+    assert res.final_error < 1e-10

@@ -51,3 +51,31 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
             roots.add(node.module.split(".")[0])
     assert "repro_torch" in roots
     assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+_SLICE_PROBE = """
+import sys
+sys.modules["jax"] = None
+from repro_torch.core import prng, staleness, topology
+from repro_torch.core.engine import (CohortSpec, gather_clients,
+                                     parse_cohort, scatter_clients,
+                                     with_cohort, with_delay)
+from repro_torch.core.staleness import (DelayState, GeometricDelay,
+                                        StalenessConfig, parse_delay)
+assert callable(prng.permutation) and callable(topology.Hierarchical.reduce_cohort)
+print(sorted(m for m in sys.modules
+             if m == "repro" or m.startswith(("repro.", "jax.", "jaxlib"))))
+"""
+
+
+def test_staleness_and_cohort_modules_stand_alone():
+    """The asynchronous-round and cohort names (``core/staleness.py``,
+    ``with_delay``, ``with_cohort``, ``CohortSpec``,
+    ``Topology.reduce_cohort``, ``prng.permutation``) import with JAX made
+    unimportable and load nothing of ``repro``."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", _SLICE_PROBE], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -3,8 +3,13 @@ CPU, bit for bit: key data, ``fold_in`` (including the warm-up step -1 and
 2**31 - 1), ``split``, ``uniform`` in float32 and float64, ``bernoulli``
 in both dtypes, ``randint`` in int32 and int64, and ``categorical`` (the
 Gumbel-max draw, float32 and float64 logits, and the sampled ``generate``
-of the serving path, token for token). The tests run with
-``jax_enable_x64`` on (``tests/conftest.py``), the reference's setting."""
+of the serving path, token for token), and ``permutation`` at sizes that
+take 0, 1 and 2 sort rounds. The tests run with ``jax_enable_x64`` on
+(``tests/conftest.py``), the reference's setting; one test turns it off
+around the reference's calls (and restores it) and holds the port's
+float32 / int32 draws (``x64=False``, the dtypes of ``run_training`` and
+``FedTrainer``) to the reference's: participation masks, resampled
+Erdős–Rényi graphs, ``RandK`` indices and ``geom:p`` arrival masks."""
 
 import numpy as np
 import pytest
@@ -136,3 +141,93 @@ def test_sampled_generate_draws_the_reference_tokens():
         build_model(cfg), params, input_specs.make_batch(cfg, 3, 12, key=1),
         gen_len=8, greedy=False)
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [1, 7, 24, 1000, 1625, 1626, 100000])
+def test_permutation_matches_jax(n):
+    jax, jk, pk = _pair(seed=4, data=n)
+    want = np.asarray(jax.random.permutation(jk, n))
+    assert np.array_equal(prng.permutation(pk, n).numpy(), want)
+
+
+class _x64_off:
+    """``jax_enable_x64`` off around the reference's calls, restored on
+    exit (the test process runs with it on)."""
+
+    def __enter__(self):
+        jax = _jax()
+        jax.config.update("jax_enable_x64", False)
+        return jax
+
+    def __exit__(self, *exc):
+        _jax()
+
+
+def test_x64_off_draws_match_the_reference_with_x64_off():
+    """The draws of the float32 LM entry points: ``RoundEngine(x64=False)``
+    participation masks, a resampled ``er:`` graph, ``RandK``'s kept
+    indices and ``geom:p`` arrivals equal the reference's with x64 off.
+    The same draws with ``x64=True`` differ somewhere (the float64
+    uniform rounds otherwise), which is what the flag is for."""
+    import dataclasses
+
+    from repro_torch.core import FedCET
+    from repro_torch.core.compressors import RandK
+    from repro_torch.core.engine import with_participation
+    from repro_torch.core.staleness import GeometricDelay, StalenessConfig
+    from repro_torch.core.topology import Mixing, TopoState
+
+    with _x64_off() as jax:
+        from repro.core import StalenessConfig as JConfig
+        from repro.core.compressors import RandK as JRandK
+        from repro.core.engine import participation_mask as jmask
+        from repro.core.staleness import GeometricDelay as JGeom
+        from repro.core.topology import Mixing as JMixing
+        from repro.core.topology import TopoState as JTopoState
+        import jax.numpy as jnp
+
+        masks = {(seed, step, rate): np.asarray(jmask(
+            jax.random.fold_in(jax.random.key(seed),
+                               jnp.asarray(step, jnp.int32)), 10, rate))
+            for seed in (0, 3) for step in range(0, 40, 2)
+            for rate in (0.05, 0.5, 0.75, 0.8)}
+        graphs = {k: np.asarray(JMixing.erdos_renyi(
+            12, 0.4, seed=5, resample=True)._matrix(
+                JTopoState(k=jnp.asarray(k, jnp.int32)), 12, jnp.float32))
+            for k in range(6)}
+        leaf = np.linspace(1.0, 2.0, 1000, dtype=np.float32)[None]
+        kept = {s: np.nonzero(np.asarray(JRandK(0.25).compress(
+            jax.random.fold_in(jax.random.key(s), 9), jnp.asarray(leaf))))[1]
+            for s in range(10)}
+        jcfg = JConfig(JGeom(0.4), seed=5)
+        fresh = {s: np.asarray(jcfg.fresh_mask(jnp.asarray(s), 2, 16))
+                 for s in range(0, 40, 2)}
+
+    differs = 0
+    for (seed, step, rate), want in masks.items():
+        algo = with_participation(FedCET(alpha=0.1, c=0.1, tau=2,
+                                         n_clients=10), rate, seed=seed)
+        like = torch.zeros(1)
+        got = dataclasses.replace(algo, x64=False)._mask(step, like)
+        assert np.array_equal(got.numpy(), want), (seed, step, rate)
+        differs += not torch.equal(algo._mask(step, like), got)
+    assert differs > 0
+    er = Mixing.erdos_renyi(12, 0.4, seed=5, resample=True)
+    off = ~np.eye(12, dtype=bool)
+    for k, want in graphs.items():
+        got = er._matrix(TopoState(k=k), 12, torch.float32, "cpu",
+                         False).numpy()
+        # the same graph and edge weights; the diagonal 1 - sum_j W_ij is
+        # a float32 sum in another order.
+        assert np.array_equal(got != 0, want != 0), k
+        assert np.array_equal(got[off], want[off]), k
+        np.testing.assert_allclose(np.diag(got), np.diag(want), rtol=0,
+                                   atol=4 * np.finfo(np.float32).eps)
+    for s, want in kept.items():
+        key = prng.fold_in(prng.key(s, x64=False), 9)
+        got = RandK(0.25).compress(key, torch.from_numpy(leaf))
+        assert np.array_equal(np.nonzero(got.numpy())[1], want), s
+    cfg = StalenessConfig(GeometricDelay(0.4), seed=5)
+    for s, want in fresh.items():
+        assert np.array_equal(cfg.fresh_mask(s, 2, 16, x64=False).numpy(),
+                              want), s

@@ -5,7 +5,9 @@
   ``Telemetry(sketches="auto", topk=3, leaf_stats=True)``): FedCET under
   ``none``, ``shift:q8`` x 0.8 participation, the arena (the sketches'
   kernel route, its plain version here), ``ring:sparse`` and
-  ``hier:g5``, and NIDS over ``ring:sparse``. Float series agree within
+  ``hier:g5``, the reference's ``composed`` scenario (``shift:q8`` x 0.8
+  participation x ``fixed:2`` / ``poly:1`` x a ``block:4`` cohort on the
+  arena), and NIDS over ``ring:sparse``. Float series agree within
   1e-12 of the series' scale (its largest magnitude; 1 for the
   invariant residual, a ratio that sits at rounding noise in these exact
   scenarios), histograms and top ids exactly.
@@ -55,6 +57,9 @@ SCENARIOS = {
     "arena": dict(arena=True),
     "ring_sparse": dict(topology="ring:sparse"),
     "hier_g5": dict(topology="hier:g5"),
+    "composed": dict(compression="shift:q8", participation=0.8,
+                     delay="fixed:2", stale_policy="poly:1",
+                     cohort="block:4", arena=True),
     "nids_ring_sparse": None,
 }
 

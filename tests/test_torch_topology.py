@@ -359,8 +359,17 @@ def test_star_specs_are_noops_and_stacking_raises(problems):
     hier = with_topology(algo, "hier:g5")
     with pytest.raises(ValueError, match="already has a topology"):
         with_topology(hier, "ring")
-    with pytest.raises(NotImplementedError, match="cohort slice"):
-        hier.topology.reduce_cohort({}, torch.ones(2), torch.zeros(2), N)
+    # a gossip graph has no server to sample a cohort: the reference's
+    # ValueError in both factory orders.
+    from repro_torch.core.engine import with_cohort
+
+    with pytest.raises(ValueError, match="cohort"):
+        with_cohort(with_topology(algo, "ring"), 4)
+    with pytest.raises(ValueError, match="cohort"):
+        with_topology(with_cohort(algo, 4), "ring")
+    with pytest.raises(NotImplementedError, match="cohort"):
+        with_topology(algo, "ring").topology.reduce_cohort(
+            {}, torch.ones(2), torch.zeros(2, dtype=torch.int64), N)
 
 
 # ----------------------------------------------- reduce and tables

@@ -156,11 +156,21 @@ def test_run_training_end_to_end_on_cpu(capsys):
     assert hist["comm_bytes"][0] == 2 * 2 * n_params * 4  # up + down, f32
 
 
-def test_entry_points_refuse_what_this_slice_does_not_run():
+def test_entry_points_refuse_what_this_slice_does_not_run(capsys):
+    """A delayed run finishes on the CPU and bills its uplink at the
+    ``fixed:2`` duty cycle (1/3); the multi-GPU client axes still raise,
+    and the default device refuses to fall back."""
+    hist = run_training("fedlm-100m", steps=2, n_clients=2, batch=1,
+                        seq_len=8, device="cpu", log_every=1,
+                        delay="fixed:2", stale_policy="drop")
+    out = capsys.readouterr().out
+    n = hist["n_params"]
+    assert all(np.isfinite(hist["loss"]))
+    assert f"bits_up {2 * n * 32.0 / 3:.4g}" in out
+    assert hist["comm_bytes"][0] == int(2 * n * 32 / 3 / 8) + 2 * n * 4
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_training("fedlm-100m", steps=1, device="cpu", delay="fixed:2")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FedCET(alpha=ALPHA, c=CW, tau=TAU, n_clients=C, cohort=4)
+        FedCET(alpha=ALPHA, c=CW, tau=TAU, n_clients=C,
+               spmd_client_axes=("data",))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_training("fedlm-100m", steps=1)
@@ -170,8 +180,16 @@ def test_cli_runs_on_cpu_and_refuses_scenarios(capsys):
     main(["--arch", "fedlm-100m", "--steps", "1", "--clients", "2",
           "--batch", "1", "--seq-len", "8", "--device", "cpu"])
     assert "final loss:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="cohort"):
-        main(["--arch", "fedlm-100m", "--device", "cpu", "--cohort", "4"])
+    # a cohort of 4 of 8 clients finishes; under a gossip graph it is the
+    # reference's ValueError.
+    main(["--arch", "fedlm-100m", "--steps", "2", "--clients", "8",
+          "--batch", "1", "--seq-len", "8", "--device", "cpu",
+          "--cohort", "4", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert "final loss:" in out and "active_clients 8" in out
+    with pytest.raises(ValueError, match="cohort"):
+        main(["--arch", "fedlm-100m", "--device", "cpu", "--clients", "8",
+              "--cohort", "4", "--topology", "ring"])
 
 
 def test_compressed_sampled_arena_training_on_cpu(capsys):

@@ -7,10 +7,10 @@ seq 32, tau 2, as ``tests/test_trainer.py``).
   run (here bit for bit, where the reference allows 1e-6); the
   heterogeneity gap is finite.
 * Mirrors of ``tests/test_telemetry.py``: telemetry adds no state (a
-  checkpoint written with it on resumes bitwise into the off algorithm;
-  the reference's ``composed`` scenario less the delay and cohort the port
-  does not run yet), and the trainer's CSV is identical with telemetry
-  and sinks on (``wall_s`` aside).
+  checkpoint written with it on resumes bitwise into the off algorithm,
+  on the synchronous ``shift:q8`` x participation round and on the
+  reference's ``composed`` scenario), and the trainer's CSV is
+  identical with telemetry and sinks on (``wall_s`` aside).
 * Against the reference: ``tests/test_torch_trainer_parity.py``.
 * SCAFFOLD and FedTrack meter twice FedAvg's bytes.
 * ``run_training(ckpt_dir=)`` writes ``step_000000050.npz`` after 50
@@ -144,10 +144,11 @@ def test_baselines_meter_their_vectors():
 
 
 # ---------------------------------------------- mirrors of test_telemetry
-def test_disabled_is_bitwise_noop_across_checkpoint_resume(tmp_path):
+def _assert_noop_across_resume(tmp_path, **kw):
     """A checkpoint written mid-run with telemetry ON restores into the
-    telemetry-OFF algorithm and continues bitwise identically to the
-    uninterrupted run."""
+    telemetry-OFF algorithm of ``FedScenario(**kw)`` and continues bitwise
+    identically to the uninterrupted run. A cohort round writes into its
+    input state, so each run starts from its own copy of the first."""
     _jax()
     from repro.data.quadratic import make_quadratic_problem as jmake
 
@@ -157,7 +158,6 @@ def test_disabled_is_bitwise_noop_across_checkpoint_resume(tmp_path):
     alpha = lr_search(problem.mu, problem.L, 2)
     base = FedCET(alpha=alpha, c=max_weight_c(problem.mu, alpha), tau=2,
                   n_clients=8)
-    kw = dict(compression="shift:q8", participation=0.8, arena=True)
     off = FedScenario(telemetry=False, **kw).apply(base)
     on = FedScenario(telemetry=True, **kw).apply(base)
     grad = torch.func.grad(problem.client_loss)
@@ -167,14 +167,35 @@ def test_disabled_is_bitwise_noop_across_checkpoint_resume(tmp_path):
     state0 = off.init(grad, x0, init_b)
     _assert_bitwise(state0, on.init(grad, x0, init_b))
     rounds = 8
-    straight, _ = run_rounds(off, grad, state0, batches, rounds=rounds)
-    mid_on, _ = run_rounds(on, grad, state0, batches, rounds=rounds // 2)
+    copy = lambda st: tree_map(  # noqa: E731
+        lambda a: a.clone() if isinstance(a, torch.Tensor) else a, st)
+    straight, _ = run_rounds(off, grad, copy(state0), batches, rounds=rounds)
+    mid_on, _ = run_rounds(on, grad, copy(state0), batches,
+                           rounds=rounds // 2)
     save(str(tmp_path / "ck"), rounds // 2, mid_on)
     restored, step = restore(str(tmp_path / "ck"), mid_on)
     assert step == rounds // 2
     resumed_off, _ = run_rounds(off, grad, restored, batches,
                                 rounds=rounds - rounds // 2)
     _assert_bitwise(straight, resumed_off)
+
+
+def test_disabled_is_bitwise_noop_across_checkpoint_resume(tmp_path):
+    """Telemetry adds no state across a checkpoint on the synchronous
+    round: ``shift:q8`` x 0.8 participation on the arena."""
+    _assert_noop_across_resume(tmp_path, compression="shift:q8",
+                               participation=0.8, arena=True)
+
+
+def test_disabled_is_bitwise_noop_across_checkpoint_resume_composed(
+        tmp_path):
+    """The same on the reference's ``composed`` scenario, whose rounds
+    take the cohort path: ``shift:q8`` x 0.8 participation x ``fixed:2``
+    / ``poly:1`` x a ``block:4`` cohort on the arena."""
+    _assert_noop_across_resume(tmp_path, compression="shift:q8",
+                               participation=0.8, delay="fixed:2",
+                               stale_policy="poly:1", cohort="block:4",
+                               arena=True)
 
 
 def test_trainer_csv_bytes_identical_with_telemetry(tmp_path):
