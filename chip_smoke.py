@@ -28,10 +28,14 @@ of the JAX package. Phases, one JSON line each:
                pointers, zero-weight pad slots, S in {1, 3, 5, n}, n in
                {1, 8, 10, 13, 1024}, zero rows, norms past both edge bins);
                flash attention within 2e-5 (in bfloat16 rtol 2e-2, atol
-               5e-3, element by element) at the two
-               serve prefills (fedlm-100m ``[4, 2048, 10/5, 64]`` causal,
-               qwen3-1.7b ``[1, 8192, 16/8, 128]`` sliding 4096), the
-               first also in bfloat16, and at S in {1000, 2047}, T != S,
+               5e-3, element by element) at the serve prefills
+               (fedlm-100m ``[4, 2048, 10/5, 64]`` causal, qwen3-1.7b
+               ``[1, 8192, 16/8, 128]`` sliding 4096, zamba2-1.2b
+               ``[1, 8192, 32/32, 64]`` sliding 4096, granite-moe ``[4,
+               2048, 24/8, 64]`` causal, gemma-2b ``[1, 8192, 8/1, 256]``
+               sliding 4096, whisper-small's encoder ``[4, 1500, 12/12,
+               64]`` bidirectional, llava-next-34b ``[1, 3904, 56/8,
+               128]`` causal), the first also in bfloat16, and at S in {1000, 2047}, T != S,
                every mask kind (chunk 7 and 64, a window of 5 inside one
                kv tile), G in {1, 2, 8}, D in {16, 32, 64, 128, 256}, and
                rows with no allowed key (chunked and sliding, T < S), each
@@ -40,7 +44,8 @@ of the JAX package. Phases, one JSON line each:
                float64); the
                SSD intra-chunk term within 1e-4 of the output's scale (1e-2
                in bfloat16) at mamba2-130m's prefill ``[4, 16, 128, 24,
-               64]``, N 128 (also in bfloat16), at the reference's sweep
+               64]``, N 128 (also in bfloat16), at zamba2-1.2b's ``[1,
+               64, 128, 64, 64]``, N 64, at the reference's sweep
                shapes in float32 and bfloat16, a ragged chunk of 37, Lc, P
                and N all off the tensor-core tiles (45, 20, 12), a_cs near
                -1e3, P 128 and uneven head groups, and equal to its own
@@ -131,7 +136,11 @@ of the JAX package. Phases, one JSON line each:
                leaving the 12 other rows bitwise unchanged, its first
                round's cohort rows held against a plain 4-client engine
                on the same rows and tokens, with its gather and scatter
-               timed and the peak GB. Per round: loss, time,
+               timed and the peak GB; (M) B's scenario on mamba2-130m at
+               full width: exactly fedcet_v 11 and fedcet_round_tail 6,
+               no ssd_intra (the gradients take the plain SSD), and one
+               ``use_pallas_ssd`` forward at the training shape within
+               2e-4 (rtol = atol) of the plain one. Per round: loss, time,
                the Lemma 2 residual and where the time goes (gradients,
                each kernel, the dither, the scale pass, pack/unpack, the
                topology's reduce, the loss, the telemetry and its sketch
@@ -162,24 +171,33 @@ of the JAX package. Phases, one JSON line each:
                launched, SCAFFOLD and FedTrack billed twice FedAvg's bytes
                a round;
 10. serve    — ``launch/serve.py:generate_tokens`` at full width, float32,
-               random weights from seed 0: (S1) fedlm-100m, batch 4,
-               prompt 2048, 64 tokens; (S2) qwen3-1.7b, batch 1, prompt
-               8192 through its 4096-slot ring cache, 32 tokens; (S3)
-               mamba2-130m, batch 4, prompt 2048, 64 tokens. Launch
-               counts reset just before and read just after: exactly one
-               flash_attention per layer on S1 and S2 (14, 28), one
-               ssd_intra per layer on S3 (24), and no other kernel. Prefill
-               ms (the run's first, then three more into fresh caches),
-               decode ms per token, tokens/s and peak GB; the logits of
-               the run (teacher-forced on its tokens) within 1e-4 of their
-               scale of the same run with the kernel's plain version; the
-               prefill of all but the last prompt token plus one decode
-               step against ``forward`` (S1: blockwise plain attention,
-               within 1e-4; S3: the plain SSD, within 2e-3); S3's
-               ``forward`` with ``use_pallas_ssd`` within 2e-4 (rtol =
-               atol) of the plain one; all finite; then 4 decode steps
-               under ``torch.profiler``: top device kernels and the device
-               idle share (trace in ``build/smoke/``).
+               random weights from seed 0, the reference's prompt draw:
+               (S1) fedlm-100m, batch 4, prompt 2048, 64 tokens; (S2)
+               qwen3-1.7b, batch 1, prompt 8192 through its 4096-slot
+               ring cache, 32 tokens; (S3) mamba2-130m, batch 4, prompt
+               2048, 64 tokens; (S4) zamba2-1.2b, batch 1, prompt 8192
+               through the shared block's 4096-slot rings, 32 tokens; (S5)
+               granite-moe-3b-a800m, batch 4, prompt 2048, 64 tokens;
+               (S6) gemma-2b, batch 1, prompt 8192 through a 4096-slot
+               ring, 32 tokens; (S7) whisper-small, batch 4, 1500 frames
+               and a 64-token prompt, 64 tokens; (S8) llava-next-34b cut
+               to 4 of its 60 layers, batch 1, 2880 image tokens and a
+               1024-token prompt, 32 tokens. Launch counts reset just
+               before and read just after, exact per prefill:
+               flash_attention 14, 28, 0, 6, 32, 18, 24 (12 bidirectional
+               over the frames, 12 causal), 4; ssd_intra 24 on S3 and 38
+               on S4; no other kernel. Prefill ms (the run's first, then
+               three more into fresh caches), decode ms per token,
+               tokens/s and peak GB; the logits of the run (teacher-forced
+               on its tokens) within 1e-4 of their scale of the same run
+               with the kernels' plain versions; the prefill of all but
+               the last prompt token plus one decode step against
+               ``forward`` (S1, S7: plain attention, within 1e-4; S3: the
+               plain SSD, within 2e-3); S3's ``forward`` with
+               ``use_pallas_ssd`` within 2e-4 (rtol = atol) of the plain
+               one; all finite; then 4 decode steps under
+               ``torch.profiler``: top device kernels and the device idle
+               share (trace in ``build/smoke/``).
 
 Then the kernels summary line, the ``nvidia-smi`` name/power-limit line and
 the final ``{"ok": true, ...}`` line. Any failed check raises: the script
@@ -622,7 +640,9 @@ def _case_ssd(shape, dtype, seed, decay=1.0):
 
 #: labels of the cases timed (their first float32 case); "main" is the
 #: one the summary line reports.
-TIMED = ("main", "gossip_arena", "one_client_gossip_arena", "qwen3_prefill")
+TIMED = ("main", "gossip_arena", "one_client_gossip_arena", "qwen3_prefill",
+         "zamba2_prefill", "granite_prefill", "gemma_prefill",
+         "whisper_encoder", "llava_prefill")
 #: cases timed beside the float32 ones, (form, label, dtype), reported
 #: under "<label>_<dtype>" in also_timed
 TIMED_OTHER = {("flash_attention", "main", torch.bfloat16),
@@ -631,8 +651,20 @@ TIMED_OTHER = {("flash_attention", "main", torch.bfloat16),
 #: fedlm-100m at batch 4 and 2048 tokens, qwen3-1.7b at 8192 tokens.
 FLASH_FEDLM = (4, 2048, 2048, 5, 2, 64, "causal", 0, 0)
 FLASH_QWEN3 = (1, 8192, 8192, 8, 2, 128, "sliding", 4096, 0)
+#: the other families' prefills (serve paths S4-S8): zamba2-1.2b's shared
+#: block (8192 tokens, 32 KV heads, G 1), granite-moe at batch 4 (G 3),
+#: gemma-2b (one KV head, G 8, D 256), whisper-small's encoder (batch 4,
+#: 1500 frames, bidirectional) and llava-next-34b (2880 image + 1024 text
+#: tokens, G 7).
+FLASH_ZAMBA2 = (1, 8192, 8192, 32, 1, 64, "sliding", 4096, 0)
+FLASH_GRANITE = (4, 2048, 2048, 8, 3, 64, "causal", 0, 0)
+FLASH_GEMMA = (1, 8192, 8192, 1, 8, 256, "sliding", 4096, 0)
+FLASH_WHISPER = (4, 1500, 1500, 12, 1, 64, "bidirectional", 0, 0)
+FLASH_LLAVA = (1, 3904, 3904, 8, 7, 128, "causal", 0, 0)
 #: (B, Nc, Lc, H, P, N) of mamba2-130m's prefill at batch 4, 2048 tokens.
 SSD_MAMBA2 = (4, 16, 128, 24, 64, 128)
+#: zamba2-1.2b's prefill at batch 1, 8192 tokens: 64 heads, N 64.
+SSD_ZAMBA2 = (1, 64, 128, 64, 64, 64)
 #: forms held to a tolerance instead of 0, by dtype: flash attention and
 #: the SSD term sum their products in another order than the einsums. A
 #: number is rtol = atol, a pair (rtol, atol). Flash in bfloat16: p is
@@ -659,6 +691,11 @@ def _cases(form):
         bf16, f = torch.bfloat16, _case_flash
         return [("main", FLASH_FEDLM, f32, f),
                 ("qwen3_prefill", FLASH_QWEN3, f32, f),
+                ("zamba2_prefill", FLASH_ZAMBA2, f32, f),
+                ("granite_prefill", FLASH_GRANITE, f32, f),
+                ("gemma_prefill", FLASH_GEMMA, f32, f),
+                ("whisper_encoder", FLASH_WHISPER, f32, f),
+                ("llava_prefill", FLASH_LLAVA, f32, f),
                 ("main", FLASH_FEDLM, bf16, f),
                 ("s_1000", (1, 1000, 1000, 2, 2, 64, "causal", 0, 0), f32, f),
                 ("window_5_s_2047", (1, 2047, 2047, 1, 1, 128, "sliding", 5,
@@ -684,7 +721,8 @@ def _cases(form):
         bf16, d = torch.bfloat16, _case_ssd
         sweep = [(1, 1, 8, 1, 4, 4), (2, 3, 16, 2, 8, 8),
                  (1, 2, 128, 3, 64, 32)]
-        return ([("main", SSD_MAMBA2, f32, d), ("main", SSD_MAMBA2, bf16, d)]
+        return ([("main", SSD_MAMBA2, f32, d), ("main", SSD_MAMBA2, bf16, d),
+                 ("zamba2_prefill", SSD_ZAMBA2, f32, d)]
                 + [(f"sweep_{i}", sh, dt, d) for i, sh in enumerate(sweep)
                    for dt in (f32, bf16)]
                 + [("ragged_37", (2, 3, 37, 5, 24, 40), f32, d),
@@ -1343,6 +1381,13 @@ PATHS[DELAY_PATH] = ({"compression": "shift:q8", "arena": True,
                       "delay": "rr:2", "stale_policy": "last"},
                      ("fedcet_v", "stochastic_quantize_rows",
                       "fedcet_comm4"), TRAIN)
+#: path M: B's scenario on mamba2-130m at full width (24 Mamba2 blocks):
+#: FedCET training of the ssm family on the card. The gradients take the
+#: plain SSD (the kernel has no backward), so no ssd_intra launch.
+MAMBA_PATH = "M_mamba2_130m_shift_q8_arena"
+PATHS[MAMBA_PATH] = ({"compression": "shift:q8", "arena": True},
+                     ("fedcet_v", "fedcet_round_tail"),
+                     dict(TRAIN, arch="mamba2-130m"))
 COMPARED = ("E_ring_sparse_arena", "F_ring_dense_arena",
             "E2_ring_sparse_arena_repeat", TELEMETRY_PATH)
 _E_LAUNCHES = {"fedcet_v": 11, "fedcet_comm": 6, "gossip_reduce": 6}
@@ -1355,7 +1400,8 @@ MAIN_PATH_LAUNCHES = {"B_shift_q8_arena": {"fedcet_v": 11,
                                        "telemetry_sketch": 10},
                       DELAY_PATH: {"fedcet_v": 11,
                                    "stochastic_quantize_rows": 6,
-                                   "fedcet_comm4": 6}}
+                                   "fedcet_comm4": 6},
+                      MAMBA_PATH: {"fedcet_v": 11, "fedcet_round_tail": 6}}
 
 
 def _allocated_plan(params, **allocate_kw):
@@ -1413,6 +1459,8 @@ def _train_path(name, scenario, expected, config):
     from repro_torch.launch.train import run_training
     from repro_torch.utils.tree import tree_leaves
 
+    config = dict(config)
+    arch = config.pop("arch", "fedlm-100m")
     timeline = _Timeline()
     undo = _instrument(timeline)
     invariants, final = [], {}
@@ -1441,7 +1489,7 @@ def _train_path(name, scenario, expected, config):
     torch.cuda.reset_peak_memory_stats()
     L.reset_launches()
     try:
-        hist = run_training("fedlm-100m", reduced=False, device="cuda",
+        hist = run_training(arch, reduced=False, device="cuda",
                             log_every=1, callback=on_round, **config,
                             **scenario)
     finally:
@@ -1456,7 +1504,7 @@ def _train_path(name, scenario, expected, config):
               "invariant": invariants[i], "split_ms": split,
               "note": "round 0 also holds the warm-up" if r == 0 else ""})
     emit({"phase": "train", "path": name, "scenario": scenario,
-          "arch": "fedlm-100m", "reduced": False,
+          "arch": arch, "reduced": False,
           "n_params": hist["n_params"], **config,
           "rounds": len(hist["round"]),
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -1614,8 +1662,32 @@ def phase_train():
     check(d_gap <= D_GAP_MAX, f"dense and sparse ring final drift differ by "
                               f"{d_gap} (relative)")
     _check_delay_bits(comm)
+    _check_mamba_pallas_forward()
     launches[COHORT_PATH] = _cohort_path()
     return launches
+
+
+def _check_mamba_pallas_forward():
+    """Path M's model with ``use_pallas_ssd``: one forward at the training
+    shape (batch 8, seq 128, ``run_training``'s seed-0 weights), every
+    block's SSD term through the kernel, against the plain forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import input_specs
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-130m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    batch = input_specs.make_batch(cfg, TRAIN["batch"], TRAIN["seq_len"],
+                                   key=1, device="cuda")
+    with torch.no_grad():
+        full = model.forward(params, batch)
+    emit({"phase": "train", "check": f"{MAMBA_PATH}_use_pallas_ssd_forward",
+          "tolerance": PALLAS_SSD_TOL,
+          **_pallas_ssd_forward(cfg, params, batch, full)})
+    del model, params, full
+    torch.cuda.empty_cache()
 
 
 def _check_delay_bits(comm):
@@ -2215,32 +2287,62 @@ def phase_trainer():
 
 
 #: serve paths: full width, float32, random weights from seed 0, the
-#: reference's prompt draw (make_batch under seed 1); the kernel each
-#: prefill launches once per layer, and the limit of prefill + decode
-#: against ``forward`` (None: not checked; S2's sliding forward would take
-#: the blockwise path over 8192 tokens).
+#: reference's prompt draw (make_batch under seed 1); ``launches``: the
+#: kernel launches of one prefill, exactly (decode launches none); the
+#: limit of prefill + decode against ``forward`` (None: not checked; a
+#: sliding forward would take the blockwise path over 8192 tokens, and at
+#: granite's capacity factor 1.25 forward, prefill and decode drop
+#: different expert assignments); ``pallas_ssd``: hold the
+#: ``use_pallas_ssd`` forward against the plain one; ``changes``: config
+#: cuts, listed in the path's ``reduced``.
 SERVE = {"S1_fedlm_100m": dict(arch="fedlm-100m", batch=4, prompt=2048,
-                               gen=64, kernel="flash_attention",
+                               gen=64, launches={"flash_attention": 14},
                                forward_tol=1e-4),
          "S2_qwen3_1p7b": dict(arch="qwen3-1.7b", batch=1, prompt=8192,
-                               gen=32, kernel="flash_attention",
+                               gen=32, launches={"flash_attention": 28},
                                forward_tol=None),
          "S3_mamba2_130m": dict(arch="mamba2-130m", batch=4, prompt=2048,
-                                gen=64, kernel="ssd_intra",
-                                forward_tol=2e-3)}
+                                gen=64, launches={"ssd_intra": 24},
+                                forward_tol=2e-3, pallas_ssd=True),
+         "S4_zamba2_1p2b": dict(arch="zamba2-1.2b", batch=1, prompt=8192,
+                                gen=32, launches={"flash_attention": 6,
+                                                  "ssd_intra": 38},
+                                forward_tol=None),
+         "S5_granite_moe_3b": dict(arch="granite-moe-3b-a800m", batch=4,
+                                   prompt=2048, gen=64,
+                                   launches={"flash_attention": 32},
+                                   forward_tol=None),
+         "S6_gemma_2b": dict(arch="gemma-2b", batch=1, prompt=8192, gen=32,
+                             launches={"flash_attention": 18},
+                             forward_tol=None),
+         # 12 bidirectional encoder layers over 1500 frames, 12 causal
+         # decoder layers over the prompt.
+         "S7_whisper_small": dict(arch="whisper-small", batch=4, prompt=64,
+                                  gen=64, launches={"flash_attention": 24},
+                                  forward_tol=1e-4),
+         # the whole model takes ~136 GB in float32: 4 of its 60 layers.
+         "S8_llava_next_34b": dict(arch="llava-next-34b", batch=1,
+                                   prompt=1024, gen=32,
+                                   launches={"flash_attention": 4},
+                                   forward_tol=None,
+                                   changes=dict(n_layers=4))}
 SERVE_TOL = 1e-4   # logits: max |kernel run - plain run| / max |plain run|
 PALLAS_SSD_TOL = 2e-4  # forward with use_pallas_ssd vs plain, rtol = atol
 
 
-def _plain(kernel):
-    """Route ``ops.<kernel>`` to its plain version; returns an undo."""
+def _plain(kernels):
+    """Route ``ops.<kernel>`` of each of ``kernels`` to its plain version;
+    returns an undo."""
     from repro_torch.kernels import ops
 
-    real = getattr(ops, kernel)
-    setattr(ops, kernel, lambda *a, **kw: real(*a, **{**kw, "impl": "ref"}))
+    real = {k: getattr(ops, k) for k in kernels}
+    for k, fn in real.items():
+        setattr(ops, k, lambda *a, fn=fn, **kw: fn(*a, **{**kw,
+                                                          "impl": "ref"}))
 
     def undo():
-        setattr(ops, kernel, real)
+        for k, fn in real.items():
+            setattr(ops, k, fn)
 
     return undo
 
@@ -2249,8 +2351,11 @@ def _teacher_forced(model, params, prompt, tokens):
     """Prefill's last logits and the logits of decoding each of
     ``tokens`` [B, n] in turn: the logits a generate run that emitted
     ``tokens`` saw. Returns [n + 1, B, V]."""
+    from repro_torch.launch.serve import cache_len
+
     B, S = prompt["tokens"].shape
-    caches = model.init_caches(B, S + tokens.shape[1], device="cuda")
+    caches = model.init_caches(B, cache_len(model.cfg, S, tokens.shape[1]),
+                               device="cuda")
     with torch.no_grad():
         logits, caches = model.prefill(params, prompt, caches)
         out = [logits[:, 0]]
@@ -2265,10 +2370,13 @@ def _prefill_ms(model, params, prompt, reps=3):
     """CUDA-event times of ``reps`` more prefills of ``prompt``, each into
     fresh caches: the steady state, where the run's first prefill also
     holds one-time costs."""
+    from repro_torch.launch.serve import cache_len
+
     B, S = prompt["tokens"].shape
     times = []
     for _ in range(reps):
-        caches = model.init_caches(B, S + 1, device="cuda")
+        caches = model.init_caches(B, cache_len(model.cfg, S, 1),
+                                   device="cuda")
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         with torch.no_grad():
@@ -2290,9 +2398,12 @@ def _decode_trace(name, model, params, prompt, tokens, steps=4):
     (after a prefill and one untraced step) under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch.serve import cache_len
+
     B, S = prompt["tokens"].shape
     steps = min(steps, tokens.shape[1] - 1)
-    caches = model.init_caches(B, S + steps + 1, device="cuda")
+    caches = model.init_caches(B, cache_len(model.cfg, S, steps + 1),
+                               device="cuda")
     with torch.no_grad():
         _, caches = model.prefill(params, prompt, caches)
         _, caches = model.decode_step(params, tokens[:, :1], caches)
@@ -2312,14 +2423,16 @@ def _decode_trace(name, model, params, prompt, tokens, steps=4):
 def _serve_path(name, spec):
     """Drive ``generate_tokens`` once (launches counted, prefill and each
     decode step timed with CUDA events), then hold its logits against the
-    same run with the kernel's plain version on the card."""
+    same run with the kernels' plain versions on the card."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import library as L
     from repro_torch.launch import input_specs, serve
     from repro_torch.models import build_model
     from repro_torch.utils.tree import tree_leaves
 
-    cfg = get_config(spec["arch"])
+    changes = spec.get("changes", {})
+    full_cfg = get_config(spec["arch"])
+    cfg = dataclasses.replace(full_cfg, **changes)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
@@ -2342,16 +2455,16 @@ def _serve_path(name, spec):
              for k in ("prefill", "decode")}
     del model.prefill, model.decode_step
     prefill_repeat = _prefill_ms(model, params, prompt)
-    kernel = spec["kernel"]
-    check(launches[kernel] == cfg.n_layers,
-          f"{name}: {kernel} launched {launches[kernel]} times in one "
-          f"prefill, not {cfg.n_layers}")
-    others = {k: n for k, n in launches.items() if k != kernel and n}
-    check(not others, f"{name}: other kernels launched: {others}")
+    want_launches = {k: spec["launches"].get(k, 0) for k in launches}
+    check(launches == want_launches,
+          f"{name}: one prefill launched {launches}, expected "
+          f"{spec['launches']}")
     B, n = tokens.shape
     decode_s = sum(spans["decode"]) / 1e3
     out = {"phase": "serve", "path": name, "arch": cfg.name,
-           "reduced": False, "dtype": cfg.dtype, "n_params": n_params,
+           "reduced": {k: [getattr(full_cfg, k), v]
+                       for k, v in changes.items()} or False,
+           "dtype": cfg.dtype, "n_params": n_params,
            "batch": B, "prompt_len": spec["prompt"], "gen_len": n,
            "prefill_ms": spans["prefill"][0],
            "prefill_ms_repeat": prefill_repeat,
@@ -2363,7 +2476,7 @@ def _serve_path(name, spec):
            "tokens_head": tokens[0, :8].tolist()}
 
     got = _teacher_forced(model, params, prompt, tokens)
-    undo = _plain(kernel)
+    undo = _plain(spec["launches"])
     try:
         want = _teacher_forced(model, params, prompt, tokens)
     finally:
@@ -2377,6 +2490,7 @@ def _serve_path(name, spec):
                plain_run_token_agreement=float(
                    (want[:-1].argmax(-1).T == tokens).double().mean()),
                finite=finite, tolerance=SERVE_TOL)
+    del got, want
     check(finite, f"{name}: non-finite logits")
     check(out["prefill_logits_rel_err"] <= SERVE_TOL,
           f"{name}: prefill logits differ from the plain run by "
@@ -2386,47 +2500,57 @@ def _serve_path(name, spec):
           f"{out['decode_logits_rel_err']} of their scale")
     toks = prompt["tokens"]
     full = None  # forward over the S tokens; it takes the plain path
-    if spec["forward_tol"] is not None or kernel == "ssd_intra":
+    if spec["forward_tol"] is not None or spec.get("pallas_ssd"):
         with torch.no_grad():
-            full = model.forward(params, {"tokens": toks})
+            full = model.forward(params, prompt)
     if spec["forward_tol"] is not None:
         with torch.no_grad():
-            caches = model.init_caches(B, toks.shape[1], device="cuda")
-            pre, caches = model.prefill(params, {"tokens": toks[:, :-1]},
-                                        caches)
+            caches = model.init_caches(
+                B, serve.cache_len(cfg, toks.shape[1], 0), device="cuda")
+            pre, caches = model.prefill(
+                params, {**prompt, "tokens": toks[:, :-1]}, caches)
             dec, _ = model.decode_step(params, toks[:, -1:], caches)
         fwd = max(_rel(pre[:, 0], full[:, -2]), _rel(dec[:, 0], full[:, -1]))
         out["prefill_decode_vs_forward_rel_err"] = fwd
         check(fwd <= spec["forward_tol"],
               f"{name}: prefill + decode differ from forward by {fwd} of "
               f"their scale (limit {spec['forward_tol']})")
-    if kernel == "ssd_intra":  # the use_pallas_ssd forward, S tokens
-        pallas = build_model(dataclasses.replace(cfg, use_pallas_ssd=True))
-        with torch.no_grad():
-            got_f = pallas.forward(params, {"tokens": toks})
-        excess = _excess((got_f,), (full,), PALLAS_SSD_TOL)
-        out.update(pallas_ssd_forward_max_abs_err=_max_err((got_f,),
-                                                           (full,)),
-                   pallas_ssd_forward_finite=bool(
-                       torch.isfinite(got_f).all()))
-        del got_f
-        check(out["pallas_ssd_forward_finite"]
-              and excess <= PALLAS_SSD_TOL,
-              f"{name}: the use_pallas_ssd forward differs from the plain "
-              f"one beyond rtol = atol = {PALLAS_SSD_TOL}")
+        del caches, pre, dec
+    if spec.get("pallas_ssd"):  # the use_pallas_ssd forward, S tokens
+        out.update(_pallas_ssd_forward(cfg, params, prompt, full))
         state = model.init_caches(B, 1, device="cuda").state
         out["decode_state_bytes_per_layer"] = (
             state[0].numel() * state.element_size())
+    del full
     out["decode_trace"] = _decode_trace(name, model, params, prompt, tokens)
     emit(out)
+    del model, params, prompt
     return launches
 
 
+def _pallas_ssd_forward(cfg, params, batch, full):
+    """``forward`` with ``use_pallas_ssd`` (every block's SSD term through
+    the kernel) against the plain ``full``, within PALLAS_SSD_TOL (rtol =
+    atol)."""
+    from repro_torch.models import build_model
+
+    pallas = build_model(dataclasses.replace(cfg, use_pallas_ssd=True))
+    with torch.no_grad():
+        got = pallas.forward(params, batch)
+    excess = _excess((got,), (full,), PALLAS_SSD_TOL)
+    out = {"pallas_ssd_forward_max_abs_err": _max_err((got,), (full,)),
+           "pallas_ssd_forward_finite": bool(torch.isfinite(got).all())}
+    check(out["pallas_ssd_forward_finite"] and excess <= PALLAS_SSD_TOL,
+          f"{cfg.name}: the use_pallas_ssd forward differs from the plain "
+          f"one beyond rtol = atol = {PALLAS_SSD_TOL}")
+    return out
+
+
 def phase_serve():
-    """The serving path at full width: S1 fedlm-100m (batch 4, prompt
-    2048, 64 tokens), S2 qwen3-1.7b (batch 1, prompt 8192 through a
-    4096-token ring cache, 32 tokens) and S3 mamba2-130m (batch 4, prompt
-    2048, 64 tokens)."""
+    """The serving path at full width, one path per entry of SERVE: S1
+    fedlm-100m, S2 qwen3-1.7b, S3 mamba2-130m, S4 zamba2-1.2b, S5
+    granite-moe-3b-a800m, S6 gemma-2b, S7 whisper-small, S8 llava-next-34b
+    (4 of its 60 layers)."""
     gc.collect()
     torch.cuda.empty_cache()
     launches = {}

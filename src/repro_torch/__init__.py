@@ -29,7 +29,11 @@ attention (``kernels/csrc/flash_attention.cu``). Slice 6: the Mamba2
 (ssm) family (``models/mamba2.py``, ``models/ssm_lm.py``,
 ``configs/mamba2_130m.py``) on the serving path, and a CUDA kernel for the
 SSD intra-chunk term (``kernels/csrc/ssd_intra.cu``), the last of the
-reference's TPU kernels.
+reference's TPU kernels. Slice 12: the other model families — dense
+variants (GeGLU, GELU, LayerNorm, biases, scaled embeddings), MoE
+(``models/moe.py``), the Zamba2 hybrid (``models/hybrid.py``), the
+Whisper encoder-decoder (``models/encdec.py``) and the VLM prefix — and
+every config of the reference (``configs/``).
 """
 
 import torch

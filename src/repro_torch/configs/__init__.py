@@ -1,15 +1,33 @@
-"""Registry of the architectures the port runs (port of
-``src/repro/configs/__init__.py``): ``fedlm-100m`` (slice 1),
-``qwen3-1.7b`` (the serving slice) and ``mamba2-130m`` (the ssm family);
-the other architectures of the reference come with the model families
-that run them."""
+"""Registry of the assigned architectures and the paper's own workload
+(port of ``src/repro/configs/__init__.py``). Every entry cites its
+source; ``get_config(name)`` is what ``--arch <id>`` resolves through."""
 
-from repro_torch.configs import fedlm_100m, mamba2_130m, qwen3_1p7b
+from repro_torch.configs import (
+    fedlm_100m,
+    gemma_2b,
+    granite_moe_3b_a800m,
+    internlm2_20b,
+    llama4_scout_17b_a16e,
+    llava_next_34b,
+    mamba2_130m,
+    minicpm_2b,
+    qwen3_1p7b,
+    whisper_small,
+    zamba2_1p2b,
+)
 from repro_torch.configs.base import ArchConfig
 
-_REGISTRY: dict[str, ArchConfig] = {c.name: c for c in (fedlm_100m.CONFIG,
-                                                        qwen3_1p7b.CONFIG,
-                                                        mamba2_130m.CONFIG)}
+#: the 10 assigned architectures (fedlm-100m is the paper-side extra).
+ASSIGNED = (
+    "internlm2-20b", "zamba2-1.2b", "qwen3-1.7b", "minicpm-2b",
+    "llava-next-34b", "llama4-scout-17b-a16e", "gemma-2b", "mamba2-130m",
+    "granite-moe-3b-a800m", "whisper-small",
+)
+
+_REGISTRY: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in (
+    internlm2_20b, zamba2_1p2b, qwen3_1p7b, minicpm_2b, llava_next_34b,
+    llama4_scout_17b_a16e, gemma_2b, mamba2_130m, granite_moe_3b_a800m,
+    whisper_small, fedlm_100m)}
 
 
 def registry() -> dict[str, ArchConfig]:
@@ -27,4 +45,4 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-__all__ = ["ArchConfig", "get_config", "list_archs", "registry"]
+__all__ = ["ASSIGNED", "ArchConfig", "get_config", "list_archs", "registry"]

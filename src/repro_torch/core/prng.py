@@ -22,7 +22,9 @@ Bits as jax draws them (the traps, with their lines in jax's ``prng.py``):
 * Random bits (:1184-1200) hash the hi and lo words of the row-major flat
   index; 32-bit draws are ``bits1 ^ bits2``, 64-bit draws
   ``(bits1 << 32) | bits2``.
-* ``uniform`` ORs the top mantissa bits into 1.0 and subtracts 1.0.
+* ``uniform`` ORs the top mantissa bits into 1.0 and subtracts 1.0;
+  ``normal`` maps such a draw onto ``[nextafter(-1, 0), 1)`` and through
+  ``sqrt(2) * erfinv``.
 * ``bernoulli(key, p)`` draws its uniform in the dtype of ``p``, and
   ``uniform`` and ``randint`` default to jax's canonical dtypes: float64 /
   int64 under ``jax_enable_x64`` (the reference's tests and its float64
@@ -154,6 +156,96 @@ def uniform(k: Key, shape=(), dtype=None, device=None) -> torch.Tensor:
         fbits = (b1 << 20) | (b2 >> 12) | 0x3FF0000000000000
         return fbits.view(torch.float64) - 1.0
     raise TypeError(f"uniform: float32 or float64 only, got {dtype}")
+
+
+#: XLA's ``erf_inv`` (the CHLO decomposition jax lowers to): Giles'
+#: polynomials in ``w = -log1p(-x * x)``, highest power first. float32:
+#: (w < 5, else) in ``w - 2.5`` / ``sqrt(w) - 3``; float64: (w < 6.25,
+#: w < 16, else) in ``w - 3.125`` / ``sqrt(w) - 3.25`` / ``sqrt(w) - 5``.
+_ERFINV_F32 = (
+    (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+     0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+     1.50140941),
+    (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+     0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+     2.83297682))
+_ERFINV_F64 = (
+    (-3.6444120640178196996e-21, -1.685059138182016589e-19,
+     1.2858480715256400167e-18, 1.115787767802518096e-17,
+     -1.333171662854620906e-16, 2.0972767875968561637e-17,
+     6.6376381343583238325e-15, -4.0545662729752068639e-14,
+     -8.1519341976054721522e-14, 2.6335093153082322977e-12,
+     -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+     1.051212273321532285e-09, -4.1126339803469836976e-09,
+     -2.9070369957882005086e-08, 4.2347877827932403518e-07,
+     -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+     0.0001867342080340571352, -0.00074070253416626697512,
+     -0.0060336708714301490533, 0.24015818242558961693,
+     1.6536545626831027356),
+    (2.2137376921775787049e-09, 9.0756561938885390979e-08,
+     -2.7517406297064545428e-07, 1.8239629214389227755e-08,
+     1.5027403968909827627e-06, -4.013867526981545969e-06,
+     2.9234449089955446044e-06, 1.2475304481671778723e-05,
+     -4.7318229009055733981e-05, 6.8284851459573175448e-05,
+     2.4031110387097893999e-05, -0.0003550375203628474796,
+     0.00095328937973738049703, -0.0016882755560235047313,
+     0.0024914420961078508066, -0.0037512085075692412107,
+     0.005370914553590063617, 1.0052589676941592334,
+     3.0838856104922207635),
+    (-2.7109920616438573243e-11, -2.5556418169965252055e-10,
+     1.5076572693500548083e-09, -3.7894654401267369937e-09,
+     7.6157012080783393804e-09, -1.4960026627149240478e-08,
+     2.9147953450901080826e-08, -6.7711997758452339498e-08,
+     2.2900482228026654717e-07, -9.9298272942317002539e-07,
+     4.5260625972231537039e-06, -1.9681778105531670567e-05,
+     7.5995277030017761139e-05, -0.00021503011930044477347,
+     -0.00013871931833623122026, 1.0103004648645343977,
+     4.8499064014085844221))
+
+
+def _horner(coeffs, w):
+    p = torch.full_like(w, coeffs[0])
+    for c in coeffs[1:]:
+        p = c + p * w
+    return p
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's ``erf_inv`` for float32 and float64 tensors (torch's own
+    ``erfinv`` is another approximation: up to 63 float32 and 5672
+    float64 ulps apart in the tails)."""
+    w = -torch.log1p(x * -x)
+    if x.dtype == torch.float32:
+        lt5 = w < 5.0
+        w = torch.where(lt5, w - 2.5, torch.sqrt(w) - 3.0)
+        p = torch.where(lt5, _horner(_ERFINV_F32[0], w),
+                        _horner(_ERFINV_F32[1], w))
+    elif x.dtype == torch.float64:
+        lt625, lt16 = w < 6.25, w < 16.0
+        w = torch.where(lt625, w - 3.125,
+                        torch.sqrt(w) - torch.where(lt16, 3.25, 5.0))
+        p = torch.where(lt625, _horner(_ERFINV_F64[0], w),
+                        torch.where(lt16, _horner(_ERFINV_F64[1], w),
+                                    _horner(_ERFINV_F64[2], w)))
+    else:
+        raise TypeError(f"erfinv: float32 or float64 only, got {x.dtype}")
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(k: Key, shape=(), dtype=None, device=None) -> torch.Tensor:
+    """``jax.random.normal(k, shape, dtype)`` (``random.py:_normal_real``):
+    ``sqrt(2) * erfinv(u)`` for ``u`` uniform on ``[nextafter(-1, 0), 1)``,
+    drawn as ``max(lo, f * (1 - lo) + lo)`` from ``uniform``'s ``f`` in
+    ``[0, 1)`` (bit for bit), through XLA's ``erf_inv`` (:func:`erfinv`);
+    ``dtype`` None is the key's float dtype. Torch's ``log1p`` and XLA's
+    may round apart, so the draws agree with jax's to a few ulps."""
+    dtype = dtype or float_dtype(k)
+    f = uniform(k, shape, dtype, device)
+    lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype, device=f.device),
+                         torch.tensor(0.0, dtype=dtype, device=f.device))
+    u = torch.clamp_min(f * (1.0 - lo) + lo, lo)
+    return erfinv(u) * torch.tensor(math.sqrt(2), dtype=dtype,
+                                    device=f.device)
 
 
 def bernoulli(k: Key, p: float, shape=(), dtype=None,

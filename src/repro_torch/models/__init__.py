@@ -1,13 +1,14 @@
-"""Model zoo of the port (port of ``src/repro/models/__init__.py``): the
-dense transformer family and the Mamba2 (ssm) family, for training and
-serving."""
+"""Model zoo of the port (port of ``src/repro/models/__init__.py``): every
+assigned family, for training and serving. All models expose the same
+surface: ``init`` / ``forward`` / ``loss`` / ``init_caches`` / ``prefill``
+/ ``decode_step``."""
 
 from repro_torch.configs.base import ArchConfig
 
 
 def build_model(cfg: ArchConfig):
-    """Family dispatch; the other families are not yet ported."""
-    if cfg.family == "dense":
+    """Family dispatch."""
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import TransformerLM
 
         return TransformerLM(cfg)
@@ -15,10 +16,15 @@ def build_model(cfg: ArchConfig):
         from repro_torch.models.ssm_lm import Mamba2LM
 
         return Mamba2LM(cfg)
-    raise NotImplementedError(f"model family {cfg.family!r} is not yet "
-                              "ported: the port builds the dense and ssm "
-                              "families; the others are ROADMAP.md Queue 1 "
-                              "item 6")
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import HybridLM
+
+        return HybridLM(cfg)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM(cfg)
+    raise ValueError(f"unknown family: {cfg.family}")
 
 
 __all__ = ["ArchConfig", "build_model"]

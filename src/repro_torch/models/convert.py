@@ -3,7 +3,10 @@
 ``params_from_numpy`` turns a parameter tree of numpy arrays (e.g. the
 reference's params after ``jax.tree.map(np.asarray, params)``) into the
 port's tree of tensors with the same keys, nesting and layouts
-(``lm_head [d, V]``, dense weights ``[d_in, d_out]``). ``state_from_numpy``
+(``lm_head [d, V]``, dense weights ``[d_in, d_out]``), for every family:
+the MoE's stacked experts ``[E, d, d_ff]``, the hybrid's grouped Mamba
+stacks ``[G, every, ...]`` (or nested lists) and its ``shared_attn``
+block, the encoder-decoder's ``encoder`` / ``decoder`` / ``enc_norm``. ``state_from_numpy``
 does the same for an algorithm state: FedCET's (both forms), NIDS's and
 every baseline's (FedAvg, SCAFFOLD, FedLin / FedTrack, FedProx, FedDyn),
 matched by the state class's name, with the step counter ``t`` as a

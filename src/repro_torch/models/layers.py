@@ -97,21 +97,56 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n_pos: int, d: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position embeddings ``[n_pos, d]``:
+    ``[sin | cos]`` of ``pos / 10000 ** (2i / d)``, in float32."""
+    inv = 1.0 / (10000.0 ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=device) / d))
+    ang = torch.arange(n_pos, dtype=torch.float32,
+                       device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # ---------------------------------------------------------------------- mlp
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype, *,
-             activation: str, lead: tuple = (), device=None) -> dict:
-    if activation != "swiglu":
-        raise NotImplementedError(f"{activation} MLP is not yet ported")
-    return {
-        "gate": dense_init(gen, d, d_ff, dtype, lead=lead, device=device),
-        "up": dense_init(gen, d, d_ff, dtype, lead=lead, device=device),
-        "down": dense_init(gen, d_ff, d, dtype, lead=lead, device=device),
-    }
+             activation: str, with_bias: bool = False, lead: tuple = (),
+             device=None) -> dict:
+    """Gated (``swiglu``, ``geglu``: ``gate``, ``up``, ``down``) or plain
+    GELU (``up``, ``down``) weights; ``with_bias`` adds zero ``up_b
+    [d_ff]`` and ``down_b [d]`` (the gated forms carry them unused, as in
+    the reference)."""
+    kw = dict(lead=lead, device=device)
+    if activation in ("swiglu", "geglu"):
+        p = {"gate": dense_init(gen, d, d_ff, dtype, **kw),
+             "up": dense_init(gen, d, d_ff, dtype, **kw),
+             "down": dense_init(gen, d_ff, d, dtype, **kw)}
+    elif activation == "gelu":  # plain gelu (whisper)
+        p = {"up": dense_init(gen, d, d_ff, dtype, **kw),
+             "down": dense_init(gen, d_ff, d, dtype, **kw)}
+    else:
+        raise ValueError(f"unknown MLP activation {activation!r}")
+    if with_bias:
+        p["up_b"] = torch.zeros(lead + (d_ff,), dtype=dtype, device=device)
+        p["down_b"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
+    return p
 
 
 def apply_mlp(x: torch.Tensor, params: dict, *,
               activation: str) -> torch.Tensor:
-    if activation != "swiglu":
-        raise NotImplementedError(f"{activation} MLP is not yet ported")
-    h = F.silu(x @ params["gate"]) * (x @ params["up"])
-    return h @ params["down"]
+    if activation in ("swiglu", "geglu"):
+        act = F.silu if activation == "swiglu" else gelu_tanh
+        h = act(x @ params["gate"]) * (x @ params["up"])
+        return h @ params["down"]
+    h = x @ params["up"]
+    if "up_b" in params:
+        h = h + params["up_b"]
+    out = gelu_tanh(h) @ params["down"]
+    if "down_b" in params:
+        out = out + params["down_b"]
+    return out

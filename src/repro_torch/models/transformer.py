@@ -1,22 +1,30 @@
-"""Decoder-only dense transformer LM (port of
-``src/repro/models/transformer.py``, dense family: training and serving).
+"""Decoder-only transformer LM (port of ``src/repro/models/transformer.py``:
+the dense, moe and vlm families, training and serving).
 
 The model is a pure function of an explicit parameter tree with the
 reference's keys and layouts (``embed [V, d]``, ``lm_head [d, V]``, dense
-weights ``[d_in, d_out]``), because FedCET treats the whole tree as the
-optimization variable and stacks it over clients. Two layer layouts, as in
-the reference: stacked ``[L, ...]`` leaves (``scan_layers=True``, the full
-config; the reference's ``lax.scan`` becomes a loop over ``L``) or a list
-of per-layer dicts (``reduced()``). Activation checkpointing (``remat``)
-is not applied: the model runs inside ``torch.func`` transforms.
+weights ``[d_in, d_out]``, stacked experts ``[E, d, d_ff]``), because
+FedCET treats the whole tree as the optimization variable and stacks it
+over clients. Two layer layouts, as in the reference: stacked ``[L,
+...]`` leaves (``scan_layers=True``, the full config; the reference's
+``lax.scan`` becomes a loop over ``L``) or a list of per-layer dicts
+(``reduced()``). Activation checkpointing (``remat``) is not applied: the
+model runs inside ``torch.func`` transforms.
+
+Block variants: RMSNorm or LayerNorm (with biases), SwiGLU, GeGLU or GELU
+MLPs (with biases), MoE feed-forwards (``models/moe.py``: their load-
+balance term enters ``loss`` times ``MOE_AUX_COEF``), and embeddings
+scaled by ``sqrt(d_model)`` in the parameters' dtype (gemma). The vlm
+family (llava-next) takes stub image-patch embeddings
+``batch["image_embeds"] [B, n_img, d]`` before the text: the sequence is
+``[image tokens][text tokens]``, ``loss`` scores text positions only, and
+serving caches hold ``S + n_modal_tokens`` positions.
 
 Serving: ``init_caches`` (stacked ``[L, ...]`` caches for stacked layers,
 a list otherwise), ``prefill`` (every layer's full-sequence attention
 through the flash-attention kernel, the caches filled in place) and
 ``decode_step``. ``use_pallas_attention`` sends ``forward`` through the
 same kernel; it has no backward, so ``loss`` under autograd raises then.
-MoE, layernorm, MLP biases, embedding scale and VLM inputs wait for later
-slices.
 """
 
 from __future__ import annotations
@@ -29,29 +37,40 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_mlp,
+    apply_norm,
     embed_init,
     init_mlp,
     init_norm,
-    rms_norm,
     torch_dtype,
 )
 from repro_torch.models.losses import chunked_ce
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.utils.tree import tree_index
+
+MOE_AUX_COEF = 0.01
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, *, lead: tuple = (),
                device=None) -> dict:
     dtype = torch_dtype(cfg.param_dtype)
     kw = dict(lead=lead, device=device)
-    return {
-        "ln1": init_norm(cfg.d_model, dtype, **kw),
+    with_bias = cfg.norm == "layernorm"
+    p = {
+        "ln1": init_norm(cfg.d_model, dtype, with_bias=with_bias, **kw),
         "attn": attn.init_attention(
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             dtype, qk_norm=cfg.qk_norm, with_bias=cfg.attn_bias, **kw),
-        "ln2": init_norm(cfg.d_model, dtype, **kw),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                        activation=cfg.activation, **kw),
+        "ln2": init_norm(cfg.d_model, dtype, with_bias=with_bias, **kw),
     }
+    if cfg.n_experts:
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, dtype,
+                            shared_expert=cfg.moe_shared_expert,
+                            activation=cfg.activation, **kw)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                            activation=cfg.activation, with_bias=cfg.mlp_bias,
+                            **kw)
+    return p
 
 
 def _attn_kw(cfg: ArchConfig) -> dict:
@@ -61,54 +80,54 @@ def _attn_kw(cfg: ArchConfig) -> dict:
                 use_rope=cfg.use_rope)
 
 
-def _mlp_residual(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = rms_norm(x, p["ln2"]["weight"])
-    return x + apply_mlp(h, p["mlp"], activation=cfg.activation)
+def _ffn_residual(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """``(x + ffn(norm(x)), aux)``: the MLP, or the MoE and its
+    load-balance term (a float32 0 for an MLP)."""
+    h = apply_norm(x, p["ln2"], cfg.norm)
+    if cfg.n_experts:
+        h, aux = apply_moe(p["moe"], h, n_experts=cfg.n_experts,
+                           k=cfg.experts_per_token,
+                           capacity_factor=cfg.capacity_factor,
+                           activation=cfg.activation,
+                           shared_expert=cfg.moe_shared_expert)
+        return x + h, aux
+    return (x + apply_mlp(h, p["mlp"], activation=cfg.activation),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """One decoder block over a full sequence."""
-    h = attn.attention(p["attn"], rms_norm(x, p["ln1"]["weight"]),
+def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """``(x, aux)`` for one decoder block over a full sequence."""
+    h = attn.attention(p["attn"], apply_norm(x, p["ln1"], cfg.norm),
                        block_size=cfg.attn_block_size,
                        use_pallas=cfg.use_pallas_attention, **_attn_kw(cfg))
-    return _mlp_residual(p, x + h, cfg)
+    return _ffn_residual(p, x + h, cfg)
 
 
 def apply_block_prefill(p: dict, x: torch.Tensor, cache: attn.KVCache,
                         cfg: ArchConfig, *, ring: bool):
     h, cache = attn.prefill_attention(
-        p["attn"], rms_norm(x, p["ln1"]["weight"]), cache=cache, ring=ring,
-        **_attn_kw(cfg))
-    return _mlp_residual(p, x + h, cfg), cache
+        p["attn"], apply_norm(x, p["ln1"], cfg.norm), cache=cache,
+        ring=ring, **_attn_kw(cfg))
+    return _ffn_residual(p, x + h, cfg)[0], cache
 
 
 def apply_block_decode(p: dict, x1: torch.Tensor, cache: attn.KVCache,
                        cfg: ArchConfig, *, ring: bool):
     h, cache = attn.decode_attention(
-        p["attn"], rms_norm(x1, p["ln1"]["weight"]), cache, ring=ring,
+        p["attn"], apply_norm(x1, p["ln1"], cfg.norm), cache, ring=ring,
         **_attn_kw(cfg))
-    return _mlp_residual(p, x1 + h, cfg), cache
+    return _ffn_residual(p, x1 + h, cfg)[0], cache
 
 
 class TransformerLM(nn.Module):
-    """Dense decoder-only LM: ``init``, ``forward`` and ``loss`` over an
-    explicit parameter tree."""
+    """Decoder-only LM (dense, moe, vlm): ``init``, ``forward``, ``loss``
+    and the serving surface over an explicit parameter tree."""
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        unsupported = {
-            "family": cfg.family != "dense",
-            "n_experts": bool(cfg.n_experts),
-            "norm": cfg.norm != "rmsnorm",
-            "mlp_bias": cfg.mlp_bias,
-            "embed_scale": cfg.embed_scale,
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(bad)} not yet ported (the port runs "
-                "the dense RMSNorm/SwiGLU transformer; ROADMAP.md Queue 1 "
-                "item 6)")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"{cfg.name}: TransformerLM builds the dense, "
+                             f"moe and vlm families, not {cfg.family!r}")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ init
@@ -126,7 +145,9 @@ class TransformerLM(nn.Module):
             "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                                 device=device),
             "layers": layers,
-            "final_norm": init_norm(cfg.d_model, dtype, device=device),
+            "final_norm": init_norm(cfg.d_model, dtype,
+                                    with_bias=cfg.norm == "layernorm",
+                                    device=device),
         }
         if not cfg.tie_embeddings:
             p["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
@@ -134,34 +155,51 @@ class TransformerLM(nn.Module):
         return p
 
     # -------------------------------------------------------------- forward
-    def _embed(self, params, tokens):
-        x = F.embedding(tokens.to(torch.int64), params["embed"])
-        return x.to(torch_dtype(self.cfg.dtype))
-
-    def _hidden(self, params, tokens):
-        """Final-norm hidden states [B, S, d]."""
+    def _embed(self, params, tokens, image_embeds=None):
+        """Token embeddings (times ``sqrt(d_model)`` in their own dtype
+        with ``embed_scale``), after the image embeddings when given."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
-        if cfg.scan_layers:
-            for i in range(cfg.n_layers):
-                x = apply_block(tree_index(params["layers"], i), x, cfg)
-        else:
-            for p in params["layers"]:
-                x = apply_block(p, x, cfg)
-        return rms_norm(x, params["final_norm"]["weight"])
+        x = F.embedding(tokens.to(torch.int64), params["embed"])
+        if cfg.embed_scale:
+            x = x * torch.sqrt(torch.tensor(cfg.d_model, dtype=x.dtype,
+                                            device=x.device))
+        if image_embeds is not None:
+            x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
+        return x.to(torch_dtype(cfg.dtype))
+
+    def _layers(self, params) -> list:
+        if self.cfg.scan_layers:
+            return [tree_index(params["layers"], i)
+                    for i in range(self.cfg.n_layers)]
+        return params["layers"]
+
+    def _hidden(self, params, batch):
+        """(final-norm hidden states [B, S(+n_img), d], the summed aux)."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"], batch.get("image_embeds"))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p in self._layers(params):
+            x, a = apply_block(p, x, cfg)
+            aux = aux + a
+        return apply_norm(x, params["final_norm"], cfg.norm), aux
 
     def _head(self, params):
         return (params["embed"].t() if self.cfg.tie_embeddings
                 else params["lm_head"])
 
     def forward(self, params, batch) -> torch.Tensor:
-        """Full-sequence logits [B, S, V]."""
-        return self._hidden(params, batch["tokens"]) @ self._head(params)
+        """Full-sequence logits [B, S(+n_img), V]."""
+        return self._hidden(params, batch)[0] @ self._head(params)
 
     def loss(self, params, batch) -> torch.Tensor:
-        """Mean next-token cross entropy (a float32 scalar)."""
-        return chunked_ce(self._hidden(params, batch["tokens"]),
-                          self._head(params), batch["tokens"])
+        """Mean next-token cross entropy over the text positions, plus
+        ``MOE_AUX_COEF`` times the summed load-balance terms (a float32
+        scalar)."""
+        x, aux = self._hidden(params, batch)
+        img = batch.get("image_embeds")
+        ce = chunked_ce(x, self._head(params), batch["tokens"],
+                        prefix=0 if img is None else img.shape[1])
+        return ce + MOE_AUX_COEF * aux
 
     # ---------------------------------------------------------------- serve
     def _ring(self) -> bool:
@@ -198,11 +236,10 @@ class TransformerLM(nn.Module):
         cfg, ring = self.cfg, self._ring()
         if cfg.scan_layers:
             cache = caches
-            for i in range(cfg.n_layers):
+            for i, p in enumerate(self._layers(params)):
                 view = attn.KVCache(caches.k[i], caches.v[i], caches.pos[i],
                                     caches.length)
-                x, cache = block(tree_index(params["layers"], i), x, view,
-                                 cfg, ring=ring)
+                x, cache = block(p, x, view, cfg, ring=ring)
             return x, caches._replace(length=cache.length)
         new = []
         for p, cache in zip(params["layers"], caches):
@@ -211,12 +248,12 @@ class TransformerLM(nn.Module):
         return x, new
 
     def prefill(self, params, batch, caches):
-        """Run the prompt; returns (last-token logits [B, 1, V], the
-        caches filled)."""
-        x = self._embed(params, batch["tokens"])
+        """Run the prompt (after its image embeddings for the vlm family);
+        returns (last-token logits [B, 1, V], the caches filled)."""
+        x = self._embed(params, batch["tokens"], batch.get("image_embeds"))
         x, caches = self._layers_with_caches(params, caches, x,
                                              apply_block_prefill)
-        x = rms_norm(x[:, -1:], params["final_norm"]["weight"])
+        x = apply_norm(x[:, -1:], params["final_norm"], self.cfg.norm)
         return x @ self._head(params), caches
 
     def decode_step(self, params, token, caches):
@@ -224,5 +261,5 @@ class TransformerLM(nn.Module):
         x = self._embed(params, token)
         x, caches = self._layers_with_caches(params, caches, x,
                                              apply_block_decode)
-        x = rms_norm(x, params["final_norm"]["weight"])
+        x = apply_norm(x, params["final_norm"], self.cfg.norm)
         return x @ self._head(params), caches

@@ -4,12 +4,15 @@ CPU, bit for bit: key data, ``fold_in`` (including the warm-up step -1 and
 in both dtypes, ``randint`` in int32 and int64, and ``categorical`` (the
 Gumbel-max draw, float32 and float64 logits, and the sampled ``generate``
 of the serving path, token for token), and ``permutation`` at sizes that
-take 0, 1 and 2 sort rounds. The tests run with ``jax_enable_x64`` on
+take 0, 1 and 2 sort rounds; ``normal`` (and its ``erfinv``, XLA's
+polynomial) to a few ulps, with x64 on and off. The tests run with ``jax_enable_x64`` on
 (``tests/conftest.py``), the reference's setting; one test turns it off
 around the reference's calls (and restores it) and holds the port's
 float32 / int32 draws (``x64=False``, the dtypes of ``run_training`` and
 ``FedTrainer``) to the reference's: participation masks, resampled
 Erdős–Rényi graphs, ``RandK`` indices and ``geom:p`` arrival masks."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -231,3 +234,43 @@ def test_x64_off_draws_match_the_reference_with_x64_off():
     for s, want in fresh.items():
         assert np.array_equal(cfg.fresh_mask(s, 2, 16, x64=False).numpy(),
                               want), s
+
+
+#: ulps of |jax's draw| that ``prng.normal`` may differ by: the uniform
+#: draw is bit for bit jax's, ``erfinv`` is XLA's polynomial, and torch's
+#: ``log1p`` and the products' rounding may differ from XLA's (measured on
+#: 1e6 draws: 3 float32 ulps at most, 30 float64 ulps near |x| 0.92).
+NORMAL_ULPS = {torch.float32: 4, torch.float64: 32}
+
+
+@pytest.mark.parametrize("x64", [True, False], ids=["x64", "x32"])
+@pytest.mark.parametrize("shape", [(7,), (3, 1030), (200_000,)])
+def test_normal_matches_jax_to_a_few_ulps(shape, x64):
+    """``jax.random.normal`` with x64 on (float64 draws) and off (float32),
+    against ``prng.normal`` from a key of the same ``x64``."""
+    jax = _jax()
+    with _x64_off() if not x64 else contextlib.nullcontext(jax) as jax:
+        want = np.asarray(jax.random.normal(jax.random.key(7), shape))
+    got = prng.normal(prng.key(7, x64=x64), shape)
+    assert got.dtype == (torch.float64 if x64 else torch.float32)
+    assert want.dtype == got.numpy().dtype
+    ulps = np.spacing(np.abs(want)).astype(np.float64)
+    err = np.abs(got.numpy().astype(np.float64) - want.astype(np.float64))
+    assert (err <= NORMAL_ULPS[got.dtype] * ulps).all(), (err / ulps).max()
+    assert np.isfinite(want).all()
+
+
+def test_erfinv_is_xla_s_polynomial():
+    """``prng.erfinv`` against ``jax.lax.erf_inv`` on a grid of (-1, 1)
+    and at +-1 (+-inf), in both dtypes, to the same ulps."""
+    jax = _jax()
+    for dtype in (np.float32, np.float64):
+        x = np.concatenate([np.linspace(-1, 1, 40001, dtype=dtype)[1:-1],
+                            np.array([-1, 1, 0.9999999, -0.99999], dtype)])
+        want = np.asarray(jax.lax.erf_inv(jax.numpy.asarray(x)))
+        got = prng.erfinv(torch.from_numpy(x)).numpy()
+        assert np.array_equal(np.isinf(got), np.isinf(want))
+        ok = np.isfinite(want)
+        ulps = np.spacing(np.abs(want[ok])).astype(np.float64)
+        err = np.abs(got[ok].astype(np.float64) - want[ok])
+        assert (err <= NORMAL_ULPS[torch.from_numpy(x).dtype] * ulps).all()

@@ -195,14 +195,29 @@ def test_cli_runs_on_cpu_and_needs_a_card_otherwise(capsys):
             serve.main(["--arch", "fedlm-100m", "--gen-len", "2"])
 
 
-def test_other_families_and_inputs_raise():
-    from repro_torch.configs.base import ArchConfig
-
-    hybrid = ArchConfig(name="tiny-hybrid", family="hybrid", n_layers=1,
-                        d_model=8, n_heads=2, n_kv_heads=2, d_ff=16,
-                        vocab_size=16, ssm_state=4, shared_attn_every=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        build_model(hybrid)
-    vlm = dataclasses.replace(get_config("fedlm-100m"), family="vlm")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        input_specs.make_batch(vlm, 1, 4)
+@pytest.mark.parametrize("arch", ["fedlm-100m", "mamba2-130m",
+                                  "granite-moe-3b-a800m", "llava-next-34b",
+                                  "zamba2-1.2b", "whisper-small"],
+                         ids=["dense", "ssm", "moe", "vlm", "hybrid",
+                              "audio"])
+def test_every_family_builds_batches_and_generates(arch):
+    """``build_model`` and ``make_batch`` for one arch of each family at
+    ``reduced()``, the batch holding the family's inputs (image
+    embeddings for vlm, encoder frames for audio), and ``generate`` on
+    the CPU emitting int32 tokens."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    assert type(model).__name__ == {
+        "dense": "TransformerLM", "moe": "TransformerLM",
+        "vlm": "TransformerLM", "ssm": "Mamba2LM", "hybrid": "HybridLM",
+        "audio": "EncDecLM"}[cfg.family]
+    batch = input_specs.make_batch(cfg, 2, 8, key=1)
+    extra = {"vlm": {"image_embeds": (2, cfg.n_modal_tokens, cfg.d_model)},
+             "audio": {"frames": (2, cfg.encoder_len, cfg.d_model)}}.get(
+                 cfg.family, {})
+    assert {k: tuple(v.shape) for k, v in batch.items()} == {
+        "tokens": (2, 8), **extra}
+    assert batch["tokens"].dtype == torch.int32
+    assert all(batch[k].dtype == torch.float32 for k in extra)
+    out = serve.generate(arch, prompt_len=8, gen_len=3, device="cpu")
+    assert tuple(out.shape) == (2, 3) and out.dtype == torch.int32
