@@ -197,7 +197,35 @@ of the JAX package. Phases, one JSON line each:
                ``use_pallas_ssd`` within 2e-4 (rtol = atol) of the plain
                one; all finite; then 4 decode steps under
                ``torch.profiler``: top device kernels and the device idle
-               share (trace in ``build/smoke/``).
+               share (trace in ``build/smoke/``);
+11. roofline — the port's cost model (``roofline/flops.py:cost_for``, one
+               card, H100 data-sheet peaks) for train paths B and M
+               (``[n_clients * batch, seq]`` a local step, tau 2) and serve
+               paths S1-S8 (S8 at its 4 layers) at their own configs,
+               shapes and dtypes: compute and memory terms, the bottleneck,
+               the time this run measured (rounds 1-4's median; the
+               repeated prefills' median; the mean decode step, at the
+               mean context), ``round_mfu`` / ``prefill_mfu`` /
+               ``decode_mfu`` = model FLOPs / (measured s x peak of the
+               dtype), each gated to (0, 1.05], and ``bound_share`` = the
+               larger term / measured (printed only: the analytic
+               attention context is the whole sequence);
+12. sharded  — S1 and S3 at full width through ``launch/serve.py:
+               lower_prefill`` / ``lower_decode`` on a real one-rank NCCL
+               group and a 1 x 1 ("data", "model") mesh, the weights
+               distributed with the partition rules' placements: exactly
+               flash 14 / ssd_intra 24 in the prefill, the prefill's and 8
+               decode steps' logits within 1e-5 of their scale of the same
+               weights served unsharded, 0 collective bytes;
+13. dryrun   — five full-width cells of ``launch/dryrun.py`` on a fake
+               16 x 16 world (bfloat16): qwen3-1.7b x prefill_32k and
+               decode_32k, granite-moe-3b-a800m x prefill_32k (the
+               token-sharded MoE dispatch), mamba2-130m x long_500k,
+               llama4-scout-17b-a16e x decode_32k (108 B parameters as
+               fake shards), in a subprocess that sees no card; each ends
+               ok, its argument bytes equal the local shards' from the
+               specs' arithmetic, and its memory, collectives by kind and
+               three roofline terms are printed.
 
 Then the kernels summary line, the ``nvidia-smi`` name/power-limit line and
 the final ``{"ok": true, ...}`` line. Any failed check raises: the script
@@ -210,7 +238,10 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import socket
+import statistics
 import shutil
 import subprocess
 import sys
@@ -263,6 +294,10 @@ KERNELS = {
     "ssd_intra": ("ssd_intra.cu", "src/repro/kernels/ssd_intra.py:52"),
 }
 SKETCH = dict(bins=48, lo=-12.0, hi=4.0, k=4)  # hist:48, the default topk
+
+
+#: the times the train and serve phases measured, for the roofline phase
+MEASURED: dict = {}
 
 
 class SmokeFailure(AssertionError):
@@ -1513,6 +1548,8 @@ def _train_path(name, scenario, expected, config):
     check(all(launches[f] > 0 for f in expected),
           f"{name}: a kernel of the path never launched: {launches}")
     final["comm_bytes"] = hist["comm_bytes"]
+    MEASURED[name] = {"arch": arch, "config": config,
+                      "round_s": hist["seconds"]}
     return launches, hist["loss"], final, timeline.rounds
 
 
@@ -2455,6 +2492,11 @@ def _serve_path(name, spec):
              for k in ("prefill", "decode")}
     del model.prefill, model.decode_step
     prefill_repeat = _prefill_ms(model, params, prompt)
+    MEASURED[name] = {"cfg": cfg, "batch": spec["batch"],
+                      "prompt": spec["prompt"], "gen": spec["gen"],
+                      "prefill_ms_repeat": prefill_repeat,
+                      "decode_ms_per_token": sum(spans["decode"])
+                      / len(spans["decode"])}
     want_launches = {k: spec["launches"].get(k, 0) for k in launches}
     check(launches == want_launches,
           f"{name}: one prefill launched {launches}, expected "
@@ -2561,6 +2603,259 @@ def phase_serve():
     return launches
 
 
+# ---------------------------------------------------------- roofline
+#: the train paths whose rounds the roofline phase reads, and the serve
+#: paths (every one of SERVE).
+ROOFLINE_TRAIN = ("B_shift_q8_arena", MAMBA_PATH)
+MFU_MAX = 1.05     # a model-FLOPs share above this means a count is wrong
+
+
+def _roofline_row(path, kind, cfg, shape, measured_s, tau=2):
+    """The analytic cost of ``cfg`` at ``shape`` on one card (H100
+    constants), beside the time the path measured: the model-FLOPs share
+    ``<kind>_mfu`` = model FLOPs / (measured s x peak of cfg.dtype)."""
+    from repro_torch.roofline import constants as RC
+    from repro_torch.roofline.flops import cost_for
+
+    cost = cost_for(cfg, shape, n_devices=1, tau=tau)
+    peak = RC.peak_flops(cfg.dtype)
+    compute_s = cost.flops_per_device / peak
+    memory_s = cost.hbm_bytes_per_device / RC.HBM_BW
+    key = {"train": "round_mfu"}.get(kind, f"{kind}_mfu")
+    mfu = cost.model_flops_total / (measured_s * peak)
+    row = {"phase": "roofline", "path": path, "kind": kind,
+           "arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "shape": dataclasses.asdict(shape), "tau": tau,
+           "n_params": cost.n_params, "n_active_params": cost.n_active_params,
+           "model_flops": cost.model_flops_total,
+           "analytic_flops": cost.flops_per_device,
+           "hbm_bytes": cost.hbm_bytes_per_device, "peak_flops": peak,
+           "compute_s": compute_s, "memory_s": memory_s,
+           "bottleneck": "compute" if compute_s >= memory_s else "memory",
+           "measured_s": measured_s, key: mfu,
+           "bound_share": max(compute_s, memory_s) / measured_s}
+    emit(row)
+    check(0.0 < mfu <= MFU_MAX,
+          f"{path}: {key} {mfu} is outside (0, {MFU_MAX}]: a count is wrong")
+    return row
+
+
+def phase_roofline():
+    """The port's cost model (``roofline/flops.py``) for the train paths B
+    and M and the serve paths S1-S8 at their own configs, shapes and
+    dtypes, against the times this run measured: rounds 1-4's median
+    (round 0 holds the warm-up), the median of the three repeated
+    prefills, the mean decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+
+    for path in ROOFLINE_TRAIN:
+        m = MEASURED[path]
+        cfg, conf = get_config(m["arch"]), m["config"]
+        shape = ShapeConfig(path, conf["seq_len"],
+                            conf["n_clients"] * conf["batch"], "train")
+        _roofline_row(path, "train", cfg, shape,
+                      statistics.median(m["round_s"][1:]), tau=conf["tau"])
+    for path in SERVE:
+        m = MEASURED[path]
+        _roofline_row(path, "prefill", m["cfg"],
+                      ShapeConfig(path, m["prompt"], m["batch"], "prefill"),
+                      statistics.median(m["prefill_ms_repeat"]) / 1e3)
+        # the decode steps attend over prompt + 1 .. prompt + gen tokens
+        _roofline_row(path, "decode", m["cfg"],
+                      ShapeConfig(path, m["prompt"] + m["gen"] // 2,
+                                  m["batch"], "decode"),
+                      m["decode_ms_per_token"] / 1e3)
+
+
+# ----------------------------------------------------------- sharded
+SHARDED = ("S1_fedlm_100m", "S3_mamba2_130m")
+SHARDED_STEPS = 8
+SHARDED_TOL = 1e-5   # logits: max |sharded - unsharded| / max |unsharded|
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _sharded_path(name, mesh):
+    """S1 / S3 at full width through ``lower_prefill`` / ``lower_decode``
+    on ``mesh`` against the same weights and prompt served unsharded:
+    prefill, then SHARDED_STEPS decode steps on the unsharded run's
+    argmax tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES, ShapeConfig
+    from repro_torch.kernels import library as L
+    from repro_torch.launch import input_specs, partition, serve
+    from repro_torch.models import build_model
+
+    spec = SERVE[name]
+    cfg = get_config(spec["arch"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    B, S = spec["batch"], spec["prompt"]
+    prompt = input_specs.make_batch(cfg, B, S, key=1, device="cuda")
+    cap = serve.cache_len(cfg, S, SHARDED_STEPS)
+    with torch.no_grad():
+        logits, caches = model.prefill(
+            params, prompt, model.init_caches(B, cap, device="cuda"))
+        want, toks = [logits], []
+        for _ in range(SHARDED_STEPS):
+            toks.append(torch.argmax(want[-1][:, -1:], -1).to(torch.int32))
+            logits, caches = model.decode_step(params, toks[-1], caches)
+            want.append(logits)
+    del caches
+    INPUT_SHAPES[name + "_prefill"] = ShapeConfig(name, S, B, "prefill")
+    INPUT_SHAPES[name + "_decode"] = ShapeConfig(name, cap, B, "decode")
+    pre = serve.lower_prefill(cfg.name, mesh, shape_name=name + "_prefill",
+                              cfg=cfg)
+    dec = serve.lower_decode(cfg.name, mesh, shape_name=name + "_decode",
+                             cfg=cfg)
+    dparams = partition.distribute(params, pre.specs[0], mesh)
+    torch.cuda.synchronize()
+    L.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    (got, caches), coll = pre.run(dparams, prompt,
+                                  model.init_caches(B, cap, device="cuda"))
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(L.LAUNCHES)
+    got_all, coll_bytes = [got.to_local()], coll["total_bytes"]
+    for tok in toks:
+        (g, caches), coll = dec.run(dparams, tok, caches)
+        got_all.append(g.to_local())
+        coll_bytes += coll["total_bytes"]
+    torch.cuda.synchronize()
+    want_launches = {k: spec["launches"].get(k, 0) for k in launches}
+    out = {"phase": "sharded", "path": name, "arch": cfg.name,
+           "mesh": "1x1", "backend": "nccl", "batch": B, "prompt_len": S,
+           "decode_steps": SHARDED_STEPS, "prefill_ms": start.elapsed_time(
+               end), "prefill_launches": launches,
+           "prefill_logits_rel_err": _rel(got_all[0], want[0]),
+           "decode_logits_rel_err": max(_rel(g, w) for g, w in
+                                        zip(got_all[1:], want[1:])),
+           "collective_bytes": coll_bytes,
+           "placements_embed": str(dparams["embed"].placements),
+           "finite": all(bool(torch.isfinite(g).all()) for g in got_all),
+           "tolerance": SHARDED_TOL}
+    emit(out)
+    check(launches == want_launches,
+          f"{name} sharded: one prefill launched {launches}, expected "
+          f"{spec['launches']}")
+    check(out["finite"], f"{name} sharded: non-finite logits")
+    check(out["prefill_logits_rel_err"] <= SHARDED_TOL
+          and out["decode_logits_rel_err"] <= SHARDED_TOL,
+          f"{name} sharded: logits differ from the unsharded run: {out}")
+    check(coll_bytes == 0, f"{name} sharded: {coll_bytes} collective bytes "
+                           f"on one rank")
+    return launches
+
+
+def phase_sharded():
+    """S1 and S3 through the sharded serving steps on a real one-rank
+    NCCL process group and a 1 x 1 ("data", "model") mesh on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_test_mesh((1, 1))
+        launches = {}
+        for name in SHARDED:
+            launches[name + "_sharded"] = _sharded_path(name, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+# ------------------------------------------------------------ dryrun
+#: (arch, shape) cells of the dry run, full width, 16 x 16, bfloat16.
+DRYRUN_CELLS = (("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
+                ("granite-moe-3b-a800m", "prefill_32k"),
+                ("mamba2-130m", "long_500k"),
+                ("llama4-scout-17b-a16e", "decode_32k"))
+DRYRUN_SCRIPT = r"""
+import json, sys
+from repro_torch.launch import dryrun, partition, serve
+from repro_torch.launch.mesh import (axis_size, fake_world,
+                                     make_production_mesh)
+
+cells = json.loads(sys.argv[1])
+with fake_world(256):
+    mesh = make_production_mesh()
+    for arch, shape in cells:
+        rec = dryrun.run_one(arch, shape, multi_pod=False)
+        low = (serve.lower_prefill if "prefill" in shape
+               else serve.lower_decode)(arch, mesh, shape_name=shape)
+        want = 0  # the local shards' bytes, from the specs' arithmetic
+        for tree, specs in zip(low.abstract, low.specs):
+            for (_, leaf), spec in zip(partition._leaves(tree)[0],
+                                       partition.spec_leaves(specs)):
+                if spec is None:
+                    continue
+                n = leaf.numel()
+                for ax in spec:
+                    for a in (ax if isinstance(ax, tuple)
+                              else (ax,) if ax else ()):
+                        n //= axis_size(mesh, a)
+                want += n * leaf.element_size()
+        rec["argument_bytes_from_specs"] = want
+        print("DRYRUN " + json.dumps(rec), flush=True)
+"""
+
+
+def phase_dryrun():
+    """The dry run's cells on this machine's host, in a process of its own
+    with no card visible: a fake world of 256 ranks never meets the real
+    process group, and nothing touches the card."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", DRYRUN_SCRIPT,
+                          json.dumps(DRYRUN_CELLS)], capture_output=True,
+                         text=True, timeout=600, env=env, cwd=ROOT)
+    check(res.returncode == 0, f"dry run failed:\n{res.stderr[-4000:]}")
+    recs = [json.loads(line[len("DRYRUN "):])
+            for line in res.stdout.splitlines() if line.startswith("DRYRUN ")]
+    check(len(recs) == len(DRYRUN_CELLS), f"dry run gave {len(recs)} records")
+    for rec in recs:
+        rl = rec.get("roofline", {})
+        emit({"phase": "dryrun", "arch": rec["arch"], "shape": rec["shape"],
+              "mesh": rec["mesh"], "status": rec["status"],
+              "lower_s": rec.get("lower_s"), "trace_s": rec.get("trace_s"),
+              "memory": rec.get("memory"),
+              "argument_bytes_from_specs": rec["argument_bytes_from_specs"],
+              "collectives": rl.get("collective_detail", {}).get(
+                  "bytes_by_kind"),
+              "collective_counts": rl.get("collective_detail", {}).get(
+                  "count_by_kind"),
+              "compute_s": rl.get("compute_s"), "memory_s": rl.get("memory_s"),
+              "collective_s": rl.get("collective_s"),
+              "bottleneck": rl.get("bottleneck"),
+              "constants": "H100 SXM data sheet"})
+        check(rec["status"] == "ok", f"dry run {rec['arch']} x "
+                                     f"{rec['shape']}: {rec}")
+        check(rec["memory"]["argument_bytes"]
+              == rec["argument_bytes_from_specs"],
+              f"dry run {rec['arch']} x {rec['shape']}: argument bytes "
+              f"{rec['memory']['argument_bytes']} are not the local shards' "
+              f"{rec['argument_bytes_from_specs']}")
+    emit({"phase": "dryrun", "cells": len(recs),
+          "seconds": time.perf_counter() - t0})
+
+
 #: the path whose run each kernel's summary launch count comes from.
 OWNER = {"fedcet_v": "B_shift_q8_arena", "fedcet_comm": "A_dense",
          "fedcet_comm4": "C_shift_q8_per_leaf_p0.75",
@@ -2599,6 +2894,9 @@ def main() -> int:
     phase_plans()
     paths.update(phase_trainer())
     paths.update(phase_serve())
+    phase_roofline()
+    paths.update(phase_sharded())
+    phase_dryrun()
     summary = []
     for form, (src, replaces) in KERNELS.items():
         k = kernels[form]

@@ -33,7 +33,13 @@ reference's TPU kernels. Slice 12: the other model families — dense
 variants (GeGLU, GELU, LayerNorm, biases, scaled embeddings), MoE
 (``models/moe.py``), the Zamba2 hybrid (``models/hybrid.py``), the
 Whisper encoder-decoder (``models/encdec.py``) and the VLM prefix — and
-every config of the reference (``configs/``).
+every config of the reference (``configs/``). Slice 13: launch and
+roofline, serve side — the H100 cost model (``roofline/``), meshes and
+partition rules on DTensor (``launch/{mesh,overrides,partition}.py``,
+``utils/sharding_ctx.py``), the sharded prefill and decode steps
+(``launch/serve.py``), the dry run on a fake process group
+(``launch/dryrun.py``), the two serving kernels as custom ops and the
+token-sharded MoE dispatch.
 """
 
 import torch

@@ -15,7 +15,13 @@ from repro_torch.configs import (
     whisper_small,
     zamba2_1p2b,
 )
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (
+    INPUT_SHAPES,
+    ArchConfig,
+    FedScenario,
+    ShapeConfig,
+    supports_shape,
+)
 
 #: the 10 assigned architectures (fedlm-100m is the paper-side extra).
 ASSIGNED = (
@@ -45,4 +51,6 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-__all__ = ["ASSIGNED", "ArchConfig", "get_config", "list_archs", "registry"]
+__all__ = ["ASSIGNED", "ArchConfig", "FedScenario", "INPUT_SHAPES",
+           "ShapeConfig", "get_config", "list_archs", "registry",
+           "supports_shape"]

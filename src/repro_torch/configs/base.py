@@ -1,6 +1,7 @@
 """Architecture and scenario configs (port of
 ``src/repro/configs/base.py``: ``ArchConfig`` with ``reduced()`` and
-``with_dtype``, and ``FedScenario`` :127-246).
+``with_dtype``, ``FedScenario`` :127-246, and the workload shapes
+``ShapeConfig``, ``INPUT_SHAPES`` and ``supports_shape`` :249-275).
 
 A copy, not an import: the port imports nothing of the ``repro`` package.
 ``reduced()`` gives the CPU-smoke variant of the same family (2 layers,
@@ -197,3 +198,35 @@ class FedScenario:
         # cohort last: every transform above runs inside the gathered round.
         algo = with_cohort(algo, self.cohort, seed=self.seed)
         return with_telemetry(algo, self.telemetry)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned workload shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def supports_shape(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """The shape-coverage policy: a 500k-token decode needs a
+    sub-quadratic family or attention variant."""
+    if shape.name == "long_500k":
+        sub_quadratic = (
+            cfg.family in ("ssm", "hybrid")
+            or cfg.attention in ("sliding", "chunked")
+        )
+        if not sub_quadratic:
+            return False, ("pure full-attention arch: 500k decode requires a "
+                           "sub-quadratic attention variant (DESIGN.md §5)")
+    return True, ""

@@ -81,8 +81,10 @@ float32 LM entry points (``run_training`` builds its algorithm so).
 PyTorch runs eagerly, so the reference's ``lax.scan`` over local steps and
 over rounds become Python loops, and the step counter ``t`` is a Python
 int: every PRNG key of a round is derived on the host, and only the bulk
-draws run on the card. ``spmd_client_axes`` stays a field, and setting it
-raises ``NotImplementedError`` naming the slice that ports it.
+draws run on the card. ``spmd_client_axes`` (the clients' mesh axes of
+the reference's SPMD round) stays a field, and setting it raises
+``NotImplementedError`` naming the slice that ports it: slice 14, the
+training lowering, on top of ``launch/{mesh,partition}.py``.
 """
 
 from __future__ import annotations
@@ -104,7 +106,7 @@ from repro_torch.core.topology import parse_topology
 from repro_torch.utils.tree import tree_client_mean, tree_leaves, tree_map
 
 #: engine fields whose mechanisms later slices port (see ROADMAP.md).
-_LATER = {"spmd_client_axes": "the multi-GPU launch slice"}
+_LATER = {"spmd_client_axes": "slice 14 (the training lowering)"}
 
 
 class EngineState(NamedTuple):

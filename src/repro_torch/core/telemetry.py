@@ -34,9 +34,11 @@ the round runs:
   under its ``out_dir``.
 
 Telemetry disabled (``algo.telemetry is None``) adds no operation: the
-engine guards every capture on the attached spec. The reference's
-``instruction_count`` counts XLA HLO instructions and has no PyTorch
-counterpart; it is not ported.
+engine guards every capture on the attached spec.
+:func:`instruction_count` is the counterpart of the reference's count of
+optimized-HLO instructions: eager PyTorch has no compiled program, so it
+counts the aten operations one call dispatches, the same on the CPU and
+on the card.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import log_histogram
@@ -877,3 +880,23 @@ class TraceSession:
     def close(self) -> None:
         if self.active:
             self._stop()
+
+
+class _OpCount(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def instruction_count(fn, *args, **kwargs) -> int:
+    """The eager footprint of one call ``fn(*args, **kwargs)``: the number
+    of aten operations it dispatches (views and copies included, as HLO
+    counts its instructions). Benchmarks use it to report telemetry's
+    footprint next to its wall-clock cost."""
+    with _OpCount() as c:
+        fn(*args, **kwargs)
+    return c.n

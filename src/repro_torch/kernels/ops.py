@@ -15,6 +15,20 @@
 Unlike the reference's TPU wrappers there is no ``[rows, 1024]`` tiling or
 padding, and no broadcast operand is materialized: the CUDA kernels work
 on the flat leaf and broadcast the shared operand themselves.
+
+The two serving kernels, ``flash_attention`` and ``ssd_intra``, are
+reached through custom ops (``torch.ops.repro_torch.*``) with fake
+implementations: on fake tensors (the dry run's local shards) they give
+the true output shape and allocate none of the plain version's
+intermediates. On DTensors the wrappers run the op on each rank's local
+shards when the layout lets every shard compute alone: per mesh dim, all
+operands sharded on the batch dim, or on the head dim (attention: every
+operand, when the KV heads divide; SSD: x, dt and a_cs, with B and C
+replicated), or all replicated. Any other layout raises: nothing is
+gathered behind the caller's back (the callers in ``models/`` bring their
+operands to such a layout first). Under autograd the wrappers skip the
+custom ops, which have no backward: the plain version differentiates, the
+kernels raise as before.
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ from repro_torch.kernels import quantize as KQ
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import ssd_intra as KS
 from repro_torch.kernels import telemetry_reduce as KT
+from repro_torch.utils.sharding_ctx import is_dtensor
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -156,6 +171,62 @@ def top_k(vals, k: int):
     return srt[:k], order[:k].to(torch.int32)
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
+              window: int, chunk: int, kernel: bool) -> torch.Tensor:
+    if kernel:
+        return KF.flash_attention(q, k, v, kind=kind, window=window,
+                                  chunk=chunk)
+    return R.flash_attention(q, k, v, kind=kind, window=window, chunk=chunk)
+
+
+@_flash_op.register_fake
+def _(q, k, v, kind, window, chunk, kernel):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::ssd_intra", mutates_args=())
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, a_cs: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor,
+            kernel: bool) -> torch.Tensor:
+    if kernel:
+        return KS.ssd_intra(x, dt, a_cs, Bm, Cm)
+    return R.ssd_intra(x, dt, a_cs, Bm, Cm)
+
+
+@_ssd_op.register_fake
+def _(x, dt, a_cs, Bm, Cm, kernel):
+    return torch.empty_like(x)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _local(op, name: str, ops: tuple, allowed, *args):
+    """``op`` on each rank's local shards of the DTensors ``ops`` when
+    ``allowed(m, placements)`` holds on every mesh dim ``m`` (the
+    placements of ``ops`` on it); the result is placed as ``ops[0]``."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = ops[0].device_mesh
+    for m in range(mesh.ndim):
+        pl = tuple(t.placements[m] for t in ops)
+        if not allowed(m, pl):
+            raise ValueError(
+                f"{name}: mesh dim {mesh.mesh_dim_names[m]!r} has placements "
+                f"{pl}; the kernel runs on local shards only when every "
+                f"operand is batch-sharded, head-sharded or replicated "
+                f"there; redistribute first")
+    out = op(*(t.to_local() for t in ops), *args)
+    return DTensor.from_local(out, mesh, ops[0].placements, run_check=False,
+                              shape=ops[0].shape, stride=ops[0].stride())
+
+
+def _all(pl, *want) -> bool:
+    return all(p == w for p, w in zip(pl, want))
+
+
 def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                     chunk: int = 0, impl: str = "auto"):
     """Grouped-GQA flash attention, forward (see
@@ -163,11 +234,22 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     flash_attention): q ``[B, S, Hq, D]``, k/v ``[B, T, Hkv, D]``, ``kind``
     one of causal, sliding (``window``), chunked (``chunk``) and
     bidirectional. Returns ``[B, S, Hq, D]``. The CUDA kernel takes
-    float32 and bfloat16; the plain version also float64."""
-    if _use_kernel(impl, q):
-        return KF.flash_attention(q, k, v, kind=kind, window=window,
-                                  chunk=chunk)
-    return R.flash_attention(q, k, v, kind=kind, window=window, chunk=chunk)
+    float32 and bfloat16; the plain version also float64. DTensors run
+    shard-local (batch- or head-sharded, or replicated) or raise."""
+    kernel = _use_kernel(impl, q)
+    if _needs_grad(q, k, v):
+        return (KF if kernel else R).flash_attention(
+            q, k, v, kind=kind, window=window, chunk=chunk)
+    if is_dtensor(q):
+        from torch.distributed.tensor import Replicate, Shard
+
+        def allowed(m, pl):
+            return (_all(pl, *(Shard(0),) * 3) or _all(pl, *(Shard(2),) * 3)
+                    or _all(pl, *(Replicate(),) * 3))
+
+        return _local(_flash_op, "flash_attention", (q, k, v), allowed,
+                      kind, window, chunk, kernel)
+    return _flash_op(q, k, v, kind, window, chunk, kernel)
 
 
 def ssd_intra(x, dt, a_cs, Bm, Cm, impl: str = "auto"):
@@ -175,7 +257,20 @@ def ssd_intra(x, dt, a_cs, Bm, Cm, impl: str = "auto"):
     version: kernels/ref.py:ssd_intra): x ``[B, Nc, Lc, H, P]``, dt and
     a_cs ``[B, Nc, Lc, H]``, Bm and Cm ``[B, Nc, Lc, N]``. Returns x's
     shape and dtype. The CUDA kernel takes float32 and bfloat16 and has no
-    backward; the plain version also takes float64 and autograd."""
-    if _use_kernel(impl, x):
-        return KS.ssd_intra(x, dt, a_cs, Bm, Cm)
-    return R.ssd_intra(x, dt, a_cs, Bm, Cm)
+    backward; the plain version also takes float64 and autograd. DTensors
+    run shard-local (batch- or head-sharded, or replicated) or raise."""
+    kernel = _use_kernel(impl, x)
+    if _needs_grad(x, dt, a_cs, Bm, Cm):
+        return (KS if kernel else R).ssd_intra(x, dt, a_cs, Bm, Cm)
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        def allowed(m, pl):
+            r = Replicate()
+            return (_all(pl, *(Shard(0),) * 5)
+                    or _all(pl, Shard(3), Shard(3), Shard(3), r, r)
+                    or _all(pl, *(r,) * 5))
+
+        return _local(_ssd_op, "ssd_intra", (x, dt, a_cs, Bm, Cm), allowed,
+                      kernel)
+    return _ssd_op(x, dt, a_cs, Bm, Cm, kernel)

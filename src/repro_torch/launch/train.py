@@ -29,7 +29,9 @@ is saved every 50 rounds (``checkpoint/ckpt.py``, the reference's
 ``fed/trainer.py:FedTrainer.maybe_resume`` resumes). Random draws take
 float32 / int32, the reference's dtypes on this entry point (it runs with
 ``jax_enable_x64`` off). The mesh launcher (``make_plan``,
-``lower_train_step``) waits for a multi-GPU slice.
+``lower_train_step``) comes with slice 14, the training lowering, on the
+meshes and partition rules of ``launch/{mesh,partition}.py``; the dry run
+(``launch/dryrun.py``) records train shapes as skipped until then.
 
 Run as a script:
     python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \

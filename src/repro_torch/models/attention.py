@@ -33,6 +33,9 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.utils.sharding_ctx import (batch_local, gather_dims,
+                                            is_dtensor, local_layout,
+                                            split_dim)
 
 NEG_INF = -1e30
 
@@ -63,15 +66,15 @@ def init_attention(gen, d_model: int, n_heads: int, n_kv_heads: int,
 
 
 def _project_qkv(params, x, n_heads, n_kv_heads, head_dim):
-    B, S, _ = x.shape
+    x = batch_local(x)
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    return (q.reshape(B, S, n_heads, head_dim),
-            k.reshape(B, S, n_kv_heads, head_dim),
-            v.reshape(B, S, n_kv_heads, head_dim))
+    return (split_dim(q, n_heads, head_dim),
+            split_dim(k, n_kv_heads, head_dim),
+            split_dim(v, n_kv_heads, head_dim))
 
 
 def _qk_norm(params, q, k):
@@ -172,6 +175,7 @@ def _flash(q, k, v, kind, window, chunk):
             "yet (ROADMAP.md, Beyond the reference item 1, the "
             "flash-attention backward kernel): train with "
             "use_pallas_attention=False")
+    q, k, v = local_layout((q, k, v), (2, 2, 2), k.shape[2])
     return kops.flash_attention(q, k, v, kind=_mask_kind(kind),
                                 window=window, chunk=chunk)
 
@@ -226,6 +230,17 @@ def init_cache(batch: int, capacity: int, n_kv_heads: int, head_dim: int,
         length=0)
 
 
+def _roll(t, shift: int, dim: int):
+    """``torch.roll(t, shift, dim)`` for ``0 <= shift < t.shape[dim]``, as
+    two slices and a concatenation: DTensor has no sharding rule for
+    ``roll`` in torch 2.11."""
+    if shift == 0:
+        return t
+    n = t.shape[dim]
+    return torch.cat([t.narrow(dim, n - shift, shift),
+                      t.narrow(dim, 0, n - shift)], dim=dim)
+
+
 def prefill_into_cache(cache: KVCache, k, v, *, ring: bool = False) -> KVCache:
     """Write a prefix [B, S, Hkv, D] (post-RoPE) into the cache, in place.
 
@@ -237,10 +252,10 @@ def prefill_into_cache(cache: KVCache, k, v, *, ring: bool = False) -> KVCache:
     dev = cache.pos.device
     if ring and S > cap:
         shift = S % cap  # kept[i] has pos S-cap+i -> slot (i + S%cap) % cap
-        cache.k.copy_(torch.roll(k[:, -cap:], shift, dims=1))
-        cache.v.copy_(torch.roll(v[:, -cap:], shift, dims=1))
-        cache.pos.copy_(torch.roll(torch.arange(S - cap, S, dtype=torch.int32,
-                                                device=dev), shift))
+        cache.k.copy_(_roll(k[:, -cap:], shift, 1))
+        cache.v.copy_(_roll(v[:, -cap:], shift, 1))
+        cache.pos.copy_(_roll(torch.arange(S - cap, S, dtype=torch.int32,
+                                           device=dev), shift, 0))
     else:
         cache.k[:, :S] = k
         cache.v[:, :S] = v
@@ -254,8 +269,16 @@ def append_to_cache(cache: KVCache, k1, v1, *, ring: bool = False) -> KVCache:
     cap = cache.k.shape[1]
     t = cache.length
     slot = t % cap if ring else min(t, cap - 1)
-    cache.k[:, slot] = k1[:, 0]
-    cache.v[:, slot] = v1[:, 0]
+    if is_dtensor(cache.k):
+        # a write at one slot of a slot-sharded cache would gather it:
+        # select the slot elementwise, which every shard does alone
+        at = (torch.arange(cap, device=cache.pos.device)
+              == slot)[None, :, None, None]
+        cache.k.copy_(torch.where(at, k1, cache.k))
+        cache.v.copy_(torch.where(at, v1, cache.v))
+    else:
+        cache.k[:, slot] = k1[:, 0]
+        cache.v[:, slot] = v1[:, 0]
     cache.pos[slot] = t
     return cache._replace(length=t + 1)
 
@@ -269,7 +292,9 @@ def attend_decode(q1, cache: KVCache, *, window: int = 0, chunk: int = 0,
     sliding-window (ring) and chunked caches share this path."""
     B, Hq, D = q1.shape
     Hkv = cache.k.shape[2]
-    qg = q1.reshape(B, Hkv, Hq // Hkv, D)
+    # the query's heads whole (it is one token): the cache is sharded on
+    # its slots, and DTensor's einsum would flatten a sharded head dim
+    qg = gather_dims(split_dim(q1, Hkv, Hq // Hkv, dim=1), (1,))
     t = cache.length - 1  # absolute position of the query token
     scores = torch.einsum("bhgd,bshd->bhgs", qg.to(torch.float32),
                           cache.k.to(torch.float32)) / math.sqrt(D)

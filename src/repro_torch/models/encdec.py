@@ -25,7 +25,6 @@ the card, the plain version on the CPU). Cross-attention stays
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -34,25 +33,28 @@ from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
     embed_init,
+    embed_lookup,
     init_mlp,
     init_norm,
     sinusoidal_positions,
     torch_dtype,
 )
 from repro_torch.models.losses import chunked_ce
+from repro_torch.utils.sharding_ctx import (batch_local, shard_residual,
+                                            split_dim)
 from repro_torch.utils.tree import tree_index
 
 
 def _cross_kv(p, memory, n_heads, head_dim):
-    B, T, _ = memory.shape
-    k = (memory @ p["wk"] + p["bk"]).reshape(B, T, n_heads, head_dim)
-    v = (memory @ p["wv"] + p["bv"]).reshape(B, T, n_heads, head_dim)
+    memory = batch_local(memory)
+    k = split_dim(memory @ p["wk"] + p["bk"], n_heads, head_dim)
+    v = split_dim(memory @ p["wv"] + p["bv"], n_heads, head_dim)
     return k, v
 
 
 def _cross_attend(p, x, k, v, n_heads, head_dim):
     B, S, _ = x.shape
-    q = (x @ p["wq"] + p["bq"]).reshape(B, S, n_heads, head_dim)
+    q = split_dim(batch_local(x) @ p["wq"] + p["bq"], n_heads, head_dim)
     out = attn.attend_naive(q, k, v, attn.mask_fn("bidirectional"))
     return out.reshape(B, S, n_heads * head_dim) @ p["wo"] + p["bo"]
 
@@ -151,6 +153,7 @@ class EncDecLM(nn.Module):
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
                                      device=x.device)[None]
         for p in self._layers(params, "encoder", cfg.encoder_layers):
+            x = shard_residual(x)
             h = apply_norm(x, p["ln1"], "layernorm")
             x = x + attn.attention(p["attn"], h, kind="bidirectional",
                                    block_size=cfg.attn_block_size,
@@ -164,7 +167,7 @@ class EncDecLM(nn.Module):
         """Token embeddings plus the sinusoidal positions ``0..S-1``, or
         the one position ``start_pos`` of a decode step."""
         cfg = self.cfg
-        x = F.embedding(tokens.to(torch.int64), params["embed"])
+        x = embed_lookup(tokens, params["embed"])
         x = x.to(torch_dtype(cfg.dtype))
         if start_pos is None:
             return x + sinusoidal_positions(tokens.shape[1], cfg.d_model,
@@ -190,6 +193,7 @@ class EncDecLM(nn.Module):
         memory = self.encode(params, batch["frames"])
         x = self._dec_embed(params, batch["tokens"])
         for p in self._layers(params, "decoder", cfg.n_layers):
+            x = shard_residual(x)
             h = apply_norm(x, p["ln1"], "layernorm")
             x = x + attn.attention(p["self_attn"], h, kind="full",
                                    block_size=cfg.attn_block_size,

@@ -11,6 +11,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.utils.sharding_ctx import batch_local, resolve_partial
+
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
 
@@ -46,6 +48,12 @@ def init_norm(d: int, dtype, *, with_bias: bool = False, lead: tuple = (),
         return {"weight": torch.ones(shape, dtype=dtype, device=device),
                 "bias": torch.zeros(shape, dtype=dtype, device=device)}
     return {"weight": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows ``table[tokens]``; a lookup in a vocab-sharded table is summed
+    across its shards at once (``resolve_partial``)."""
+    return resolve_partial(F.embedding(tokens.to(torch.int64), table))
 
 
 # -------------------------------------------------------------------- norms
@@ -139,6 +147,7 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype, *,
 
 def apply_mlp(x: torch.Tensor, params: dict, *,
               activation: str) -> torch.Tensor:
+    x = batch_local(x)
     if activation in ("swiglu", "geglu"):
         act = F.silu if activation == "swiglu" else gelu_tanh
         h = act(x @ params["gate"]) * (x @ params["up"])

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils.sharding_ctx import shard_logits
+
 CE_CHUNK = 512
 
 
@@ -33,7 +35,7 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, tokens: torch.Tensor, *,
     c = min(chunk, n)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for s in range(0, n, c):
-        logits = (preds[:, s:s + c] @ head).to(torch.float32)
+        logits = shard_logits((preds[:, s:s + c] @ head).to(torch.float32))
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             targets[:, s:s + c, None].to(torch.int64))[..., 0]

@@ -35,6 +35,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense_init, rms_norm, torch_dtype
+from repro_torch.utils.sharding_ctx import (batch_local, dense_shards,
+                                            gather_dims, local_layout,
+                                            shard_residual, split_dim)
 
 DEFAULT_CHUNK = 128
 
@@ -89,9 +92,11 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: [B, S, C]; w: [C, K]: ``out_t = sum_k
     x_{t-K+1+k} w_k + b`` over the zero-padded past, a sum of K shifted
-    products (no cuDNN, so no TF32)."""
+    products (no cuDNN, so no TF32). The zero past is concatenated, not
+    padded: torch 2.11's DTensor gives ``F.pad``'s result one placement
+    on a two-dim mesh."""
     K, S = w.shape[-1], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = torch.cat([x.new_zeros((x.shape[0], K - 1, x.shape[2])), x], dim=1)
     out = xp[:, 0:S] * w[:, 0]
     for k in range(1, K):
         out = out + xp[:, k:k + S] * w[:, k]
@@ -157,18 +162,22 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = DEFAULT_CHUNK, h0=None,
     a_cs = torch.cumsum(a, dim=2)       # inclusive cumsum within chunk
 
     # y_intra[i] = sum_{j<=i} (C_i . B_j) exp(a_cs[i] - a_cs[j]) dt[j] x[j]
-    y_intra = kops.ssd_intra(xf, dtf, a_cs, Bf, Cf,
-                             impl="auto" if use_kernel else "ref").to(f32)
+    y_intra = kops.ssd_intra(
+        *local_layout((xf, dtf, a_cs, Bf, Cf), (3, 3, 3, None, None), H),
+        impl="auto" if use_kernel else "ref").to(f32)
 
     # state_c = sum_j B_j^T (dt_j x_j) exp(a_end - a_cs[j])   [B,Nc,H,P,N]
     decay_to_end = torch.exp(a_cs[:, :, -1:, :] - a_cs)        # [B,Nc,Lc,H]
     states = torch.einsum("bcjh,bcjhp,bcjn->bchpn", dtf * decay_to_end, xf,
                           Bf)
+    # the chunk states whole in their heads and head dims, as the carried
+    # state below: DTensor's einsums would flatten a sharded head dim
+    states = gather_dims(states, (2, 3))
 
     # recurrence over chunk states; h_prevs[c] is the state BEFORE chunk c
     chunk_decay = torch.exp(torch.sum(a, dim=2))                # [B,Nc,H]
     h = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
-         if h0 is None else h0)
+         if h0 is None else gather_dims(h0, (1, 2)))
     h_prevs = []
     for c in range(Nc):
         h_prevs.append(h)
@@ -205,6 +214,7 @@ def init_ssm_cache(batch: int, cfg: ArchConfig, dtype,
 
 def _ssm_inputs(p, u, cfg: ArchConfig):
     dims = ssm_dims(cfg)
+    u = batch_local(u)
     z = u @ p["wz"]
     xBC = torch.cat([u @ p["wx"], u @ p["wB"], u @ p["wC"]], dim=-1)
     return z, xBC, dims
@@ -214,14 +224,14 @@ def _ssd_operands(p, h, xBC, dims):
     """(x [B,S,H,P], dt, A, Bm, Cm) from the conv's output."""
     d_inner, H, P, N = dims
     x, Bm, Cm = torch.split(xBC, [d_inner, N, N], dim=-1)
-    x = x.reshape(*x.shape[:-1], H, P)
+    x = split_dim(x, H, P)
     dt = softplus((h @ p["wdt"]) + p["dt_bias"])
     A = -torch.exp(p["A_log"].to(torch.float32))
     return x, dt, A, Bm, Cm
 
 
 def _out(p, u, y, x, z, d_inner):
-    y = y + p["D"][None, None, :, None] * x
+    y = dense_shards(y + p["D"][None, None, :, None] * x)
     y = y.reshape(*y.shape[:2], d_inner)
     y = rms_norm(y * F.silu(z), p["out_norm"])
     return u + y @ p["out_proj"]
@@ -229,6 +239,7 @@ def _out(p, u, y, x, z, d_inner):
 
 def apply_mamba_block(p, u, cfg: ArchConfig, *, naive: bool = False):
     """Full-sequence mamba2 block. u: [B, S, d] -> [B, S, d]."""
+    u = shard_residual(u)
     h = rms_norm(u, p["norm"])
     z, xBC, dims = _ssm_inputs(p, h, cfg)
     xBC = F.silu(causal_conv(xBC, p["conv_w"], p["conv_b"]))
@@ -271,13 +282,16 @@ def apply_mamba_block_decode(p, u1, cache: SSMCache, cfg: ArchConfig):
     xBC, conv_state = conv_step(xBC1, cache.conv, p["conv_w"], p["conv_b"])
     xBC = F.silu(xBC)
     x, Bm, Cm = torch.split(xBC, [d_inner, N, N], dim=-1)
-    x = x.reshape(B_, H, P)
+    x = split_dim(x, H, P)
     dt = softplus(h @ p["wdt"] + p["dt_bias"])               # [B, H]
     A = -torch.exp(p["A_log"].to(torch.float32))
     decay = torch.exp(dt.to(torch.float32) * A)              # [B, H]
     inject = (dt[..., None] * x)[..., None] * Bm[:, None, None, :]
     state = cache.state * decay[..., None, None] + inject
-    y = torch.einsum("bhpn,bn->bhp", state, Cm.to(torch.float32))
+    # the state whole in its heads and head dims: DTensor's einsum would
+    # flatten a sharded head dim (torch 2.11 refuses)
+    y = torch.einsum("bhpn,bn->bhp", gather_dims(state, (1, 2)),
+                     Cm.to(torch.float32))
     y = (y + p["D"][None, :, None] * x).reshape(B_, d_inner).to(u1.dtype)
     y = rms_norm(y * F.silu(z), p["out_norm"])
     out = u1[:, 0] + y @ p["out_proj"]

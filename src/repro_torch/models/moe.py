@@ -23,10 +23,18 @@ bits only). The rank within a run is the position in the sorted order
 less the run's start, the count of smaller expert ids: the reference's
 ``searchsorted(side="left")``.
 
-Left out: the token-sharded dispatch of the reference (its
-``moe_shards()`` branch, :63-113), which waits for a multi-GPU target
-with ``utils/sharding_ctx.py`` (ROADMAP.md Queue 1, launch and
-roofline).
+The token-sharded dispatch (the reference's ``moe_shards()`` branch,
+:63-113): under ``utils/sharding_ctx.py:moe_shards()`` the ``[B, S, d]``
+tokens form an ``[nb * ns, B/nb * S/ns, d]`` grid (batch blocks by
+sequence blocks) and each cell routes into its own capacity buffer
+(per-shard capacity, the standard per-device MoE semantics), through
+``torch.func.vmap`` over ``_moe_tokens``; the shared expert is added
+after, and the load-balance term is the cells' mean. On DTensors the
+cells are the ranks' local shards: the tokens are laid out batch over the
+data axes and sequence over ``model``, the expert weights are gathered
+for the layer (gather-at-use, as the reference's), and each rank runs its
+cell alone. Without a grid (and at decode, which keeps the plain
+dispatch) DTensor tokens are replicated before routing.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import apply_mlp, dense_init, gelu_tanh, \
     init_mlp
+from repro_torch.utils.sharding_ctx import (is_dtensor, moe_shards,
+                                            redistribute, replicate)
 
 
 def init_moe(gen: torch.Generator, d: int, d_ff: int, n_experts: int, dtype,
@@ -142,16 +152,65 @@ def _moe_tokens(params: dict, xt: torch.Tensor, *, n_experts: int, k: int,
     return out, aux
 
 
+def _moe_grid(params: dict, xs: torch.Tensor, kw: dict):
+    """``_moe_tokens`` over each cell of the token grid ``xs [n, T, d]``:
+    ``(out [n, T, d], aux [n])``."""
+    return torch.func.vmap(lambda t: _moe_tokens(params, t, **kw))(xs)
+
+
+def _grid_dtensor(params: dict, x, shards: dict, kw: dict):
+    """The grid dispatch on a DTensor ``x [B, S, d]``: batch over the grid's
+    data axes, sequence over ``model`` when the grid cuts it, so each
+    rank's local shard is one cell; the expert weights replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    axes = tuple(shards["axes"])
+    batch_axes = tuple(a for a in axes if a != "model")
+    spec = (batch_axes or None, "model" if shards["ns"] > 1 else None, None)
+    x = redistribute(x, spec)
+    local = {name: (replicate(w).to_local() if is_dtensor(w) else w)
+             for name, w in params.items() if name != "shared"}
+    xl = x.to_local()
+    out, aux = _moe_grid(local, xl.reshape(1, -1, xl.shape[-1]), kw)
+    mesh = x.device_mesh
+    out = DTensor.from_local(out.reshape(xl.shape), mesh, x.placements,
+                             run_check=False, shape=x.shape,
+                             stride=x.stride())
+    names = mesh.mesh_dim_names
+    aux = DTensor.from_local(aux[0], mesh, [
+        Partial("avg") if n in axes else Replicate() for n in names],
+        run_check=False)
+    return out, aux
+
+
 def apply_moe(params: dict, x: torch.Tensor, *, n_experts: int, k: int,
               capacity_factor: float, activation: str,
               shared_expert: bool):
     """x: [B, S, d] -> ([B, S, d], the aux loss, a float32 scalar); the
-    ``B * S`` tokens of the call share one capacity."""
+    ``B * S`` tokens of the call share one capacity, or each cell of the
+    token grid has its own under ``moe_shards()``."""
     B, S, d = x.shape
-    xt = x.reshape(B * S, d)
-    out, aux = _moe_tokens(params, xt, n_experts=n_experts, k=k,
-                           capacity_factor=capacity_factor,
-                           activation=activation)
+    kw = dict(n_experts=n_experts, k=k, capacity_factor=capacity_factor,
+              activation=activation)
+    shards = moe_shards()
+    if shards is not None:
+        nb, ns = shards["nb"], shards["ns"]
+        if B % nb == 0 and B >= nb and S % ns == 0 and S >= ns:
+            if is_dtensor(x):
+                out, aux = _grid_dtensor(params, x, shards, kw)
+            else:
+                xs = (x.reshape(nb, B // nb, ns, S // ns, d)
+                      .transpose(1, 2).reshape(nb * ns, -1, d))
+                out, aux = _moe_grid(params, xs, kw)
+                out = (out.reshape(nb, ns, B // nb, S // ns, d)
+                       .transpose(1, 2).reshape(B, S, d))
+                aux = torch.mean(aux)
+            if shared_expert and "shared" in params:
+                out = out + apply_mlp(x, params["shared"],
+                                      activation=activation)
+            return out, aux
+    xt = replicate(x).reshape(B * S, d)
+    out, aux = _moe_tokens(params, xt, **kw)
     if shared_expert and "shared" in params:
         out = out + apply_mlp(xt, params["shared"], activation=activation)
     return out.reshape(B, S, d), aux

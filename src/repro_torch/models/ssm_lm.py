@@ -19,12 +19,11 @@ autograd raises then on the card.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
-                                       torch_dtype)
+from repro_torch.models.layers import (apply_norm, embed_init, embed_lookup,
+                                       init_norm, torch_dtype)
 from repro_torch.models.losses import chunked_ce
 from repro_torch.models.mamba2 import (
     SSMCache,
@@ -71,7 +70,7 @@ class Mamba2LM(nn.Module):
 
     # -------------------------------------------------------------- forward
     def _embed(self, params, tokens):
-        x = F.embedding(tokens.to(torch.int64), params["embed"])
+        x = embed_lookup(tokens, params["embed"])
         return x.to(torch_dtype(self.cfg.dtype))
 
     def _layers(self, params) -> list:

@@ -30,7 +30,6 @@ same kernel; it has no backward, so ``loss`` under autograd raises then.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -39,12 +38,14 @@ from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
     embed_init,
+    embed_lookup,
     init_mlp,
     init_norm,
     torch_dtype,
 )
 from repro_torch.models.losses import chunked_ce
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.utils.sharding_ctx import shard_residual
 from repro_torch.utils.tree import tree_index
 
 MOE_AUX_COEF = 0.01
@@ -97,6 +98,7 @@ def _ffn_residual(p: dict, x: torch.Tensor, cfg: ArchConfig):
 
 def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig):
     """``(x, aux)`` for one decoder block over a full sequence."""
+    x = shard_residual(x)
     h = attn.attention(p["attn"], apply_norm(x, p["ln1"], cfg.norm),
                        block_size=cfg.attn_block_size,
                        use_pallas=cfg.use_pallas_attention, **_attn_kw(cfg))
@@ -105,6 +107,7 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig):
 
 def apply_block_prefill(p: dict, x: torch.Tensor, cache: attn.KVCache,
                         cfg: ArchConfig, *, ring: bool):
+    x = shard_residual(x)
     h, cache = attn.prefill_attention(
         p["attn"], apply_norm(x, p["ln1"], cfg.norm), cache=cache,
         ring=ring, **_attn_kw(cfg))
@@ -159,7 +162,7 @@ class TransformerLM(nn.Module):
         """Token embeddings (times ``sqrt(d_model)`` in their own dtype
         with ``embed_scale``), after the image embeddings when given."""
         cfg = self.cfg
-        x = F.embedding(tokens.to(torch.int64), params["embed"])
+        x = embed_lookup(tokens, params["embed"])
         if cfg.embed_scale:
             x = x * torch.sqrt(torch.tensor(cfg.d_model, dtype=x.dtype,
                                             device=x.device))

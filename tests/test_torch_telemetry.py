@@ -303,3 +303,26 @@ def test_tiny_lm_series_and_events_match_reference(tmp_path):
                 continue
             _close_value(g[k], w[k], rel, k)
     assert got_ev[0]["mesh"] == {"backend": "cpu", "n_devices": 1}
+
+
+# ---------------------------------------------------- instruction_count
+def test_instruction_count_exact_on_three_ops():
+    """mul, add and sum: three aten operations, on any device."""
+    x = torch.ones(5, dtype=torch.float64)
+    assert T.instruction_count(lambda t: (t * 2.0 + 1.0).sum(), x) == 3
+
+
+def test_instruction_count_grows_with_telemetry(problems, tmp_path):
+    """One 8-client ``ring:sparse`` round with ``jsonl,hist:48`` telemetry
+    dispatches more operations than the same round without."""
+    _, port = problems
+
+    def count(spec):
+        algo = _algo(_Port, "ring_sparse", port, spec)
+        return T.instruction_count(simulate_quadratic, algo, port, 1,
+                                   device="cpu")
+
+    off = count(None)
+    on = count(f"jsonl:{tmp_path / 'run.jsonl'},hist:48")
+    assert port.n_clients == 8
+    assert on > off > 0, (on, off)
