@@ -198,9 +198,29 @@ of the JAX package. Phases, one JSON line each:
                one; all finite; then 4 decode steps under
                ``torch.profiler``: top device kernels and the device idle
                share (trace in ``build/smoke/``);
-11. roofline — the port's cost model (``roofline/flops.py:cost_for``, one
-               card, H100 data-sheet peaks) for train paths B and M
-               (``[n_clients * batch, seq]`` a local step, tau 2) and serve
+11. sharded  — S1 and S3 at full width through ``launch/serve.py:
+               lower_prefill`` / ``lower_decode`` on a real one-rank NCCL
+               group and a 1 x 1 ("data", "model") mesh, the weights
+               distributed with the partition rules' placements: exactly
+               flash 14 / ssd_intra 24 in the prefill, the prefill's and 8
+               decode steps' logits within 1e-5 of their scale of the same
+               weights served unsharded, 0 collective bytes; then the
+               train round of ``launch/train.py`` (``make_plan`` on that
+               mesh, 4 clients x batch 8 x seq 128, fedlm-100m at full
+               width in float32, tau 2, weights from seed 0) under A's
+               scenario (``A_sharded``: exactly fedcet_v 24 / fedcet_comm
+               12 a round) and C's (``C_sharded``: fedcet_v 24 /
+               fedcet_comm4 12 / stochastic_quantize 12 a round): the
+               unsharded engine's init, the state distributed with
+               ``state_shardings``, 3 rounds through ``LoweredTrain.run``
+               against the same 3 rounds unsharded from the same state and
+               batches: x and d of every leaf within 1e-6 of the leaf's
+               scale (max |x|), every loss finite, 0 collective bytes;
+               round ms (host clock to ``torch.cuda.synchronize()``) and
+               peak GB printed;
+12. roofline — the port's cost model (``roofline/flops.py:cost_for``, one
+               card, H100 data-sheet peaks) for train paths B, M and
+               A_sharded (``[n_clients * batch, seq]`` a local step, tau 2) and serve
                paths S1-S8 (S8 at its 4 layers) at their own configs,
                shapes and dtypes: compute and memory terms, the bottleneck,
                the time this run measured (rounds 1-4's median; the
@@ -210,19 +230,15 @@ of the JAX package. Phases, one JSON line each:
                dtype), each gated to (0, 1.05], and ``bound_share`` = the
                larger term / measured (printed only: the analytic
                attention context is the whole sequence);
-12. sharded  — S1 and S3 at full width through ``launch/serve.py:
-               lower_prefill`` / ``lower_decode`` on a real one-rank NCCL
-               group and a 1 x 1 ("data", "model") mesh, the weights
-               distributed with the partition rules' placements: exactly
-               flash 14 / ssd_intra 24 in the prefill, the prefill's and 8
-               decode steps' logits within 1e-5 of their scale of the same
-               weights served unsharded, 0 collective bytes;
-13. dryrun   — five full-width cells of ``launch/dryrun.py`` on a fake
+13. dryrun   — seven full-width cells of ``launch/dryrun.py`` on a fake
                16 x 16 world (bfloat16): qwen3-1.7b x prefill_32k and
                decode_32k, granite-moe-3b-a800m x prefill_32k (the
                token-sharded MoE dispatch), mamba2-130m x long_500k,
                llama4-scout-17b-a16e x decode_32k (108 B parameters as
-               fake shards), in a subprocess that sees no card; each ends
+               fake shards), and two FedCET train rounds: qwen3-1.7b x
+               train_4k (16 clients on data, TP 16) and
+               llama4-scout-17b-a16e x train_4k (the fsdp 4 view), in a
+               subprocess that sees no card; each ends
                ok, its argument bytes equal the local shards' from the
                specs' arithmetic, and its memory, collectives by kind and
                three roofline terms are printed.
@@ -1335,7 +1351,8 @@ def _instrument(timeline):
     from repro_torch.launch import train
 
     patches = [(engine, "vmap_grads",
-                lambda real: (lambda f: timeline.wrap(real(f), "grad"))),
+                lambda real: (lambda f, **kw: timeline.wrap(real(f, **kw),
+                                                            "grad"))),
                (ops, "fedcet_v", "fedcet_v"), (ops, "fedcet_comm",
                                                "fedcet_comm"),
                (ops, "stochastic_quantize", "quantize"),
@@ -2606,7 +2623,7 @@ def phase_serve():
 # ---------------------------------------------------------- roofline
 #: the train paths whose rounds the roofline phase reads, and the serve
 #: paths (every one of SERVE).
-ROOFLINE_TRAIN = ("B_shift_q8_arena", MAMBA_PATH)
+ROOFLINE_TRAIN = ("B_shift_q8_arena", MAMBA_PATH, "A_sharded")
 MFU_MAX = 1.05     # a model-FLOPs share above this means a count is wrong
 
 
@@ -2641,10 +2658,10 @@ def _roofline_row(path, kind, cfg, shape, measured_s, tau=2):
 
 
 def phase_roofline():
-    """The port's cost model (``roofline/flops.py``) for the train paths B
-    and M and the serve paths S1-S8 at their own configs, shapes and
-    dtypes, against the times this run measured: rounds 1-4's median
-    (round 0 holds the warm-up), the median of the three repeated
+    """The port's cost model (``roofline/flops.py``) for the train paths B,
+    M and A_sharded and the serve paths S1-S8 at their own configs, shapes
+    and dtypes, against the times this run measured: the rounds' median
+    but round 0's (it holds the warm-up), the median of the three repeated
     prefills, the mean decode step."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -2756,9 +2773,239 @@ def _sharded_path(name, mesh):
     return launches
 
 
+#: the sharded train paths: (path whose scenario they take, the launches
+#: of one round).
+SHARDED_TRAIN = {
+    "A_sharded": ("A_dense", {"fedcet_v": 24, "fedcet_comm": 12}),
+    "C_sharded": ("C_shift_q8_per_leaf_p0.75",
+                  {"fedcet_v": 24, "fedcet_comm4": 12,
+                   "stochastic_quantize": 12}),
+}
+SHARDED_ROUNDS = 3
+SHARDED_TRAIN_TOL = 1e-6  # x, d: max |sharded - unsharded| / max |x leaf|
+
+
+def _sharded_train_path(name, mesh):
+    """fedlm-100m at full width through ``launch/train.py``'s lowered
+    round on ``mesh`` against the unsharded engine: the same init state
+    and batches, SHARDED_ROUNDS rounds each."""
+    from repro_torch.configs.base import INPUT_SHAPES, FedScenario, ShapeConfig
+    from repro_torch.data.synthetic import make_hetero_lm_dataset
+    from repro_torch.kernels import library as L
+    from repro_torch.launch import partition, train
+    from repro_torch.launch.train import mean_client_loss
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    base, per_round = SHARDED_TRAIN[name]
+    nc, batch, seq, tau = (TRAIN[k] for k in ("n_clients", "batch",
+                                               "seq_len", "tau"))
+    INPUT_SHAPES[name] = ShapeConfig(name, seq, nc * batch, "train")
+    plan = train.make_plan("fedlm-100m", mesh, shape_name=name, tau=tau,
+                           alpha=ALPHA, c=C, dtype="float32",
+                           scenario=FedScenario(**PATHS[base][0]))
+    # the reference's own test does the same: more clients than the 1 x 1
+    # mesh's one, all on its one rank
+    plan = dataclasses.replace(plan, n_clients=nc, per_client_batch=batch,
+                               algo=dataclasses.replace(plan.algo,
+                                                        n_clients=nc))
+    model = build_model(plan.cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    unsharded = dataclasses.replace(plan.algo, spmd_client_axes=())
+    ds = make_hetero_lm_dataset(plan.cfg.vocab_size, nc, seq, batch,
+                                heterogeneity=0.8, seed=0, device="cuda")
+    grad_fn = torch.func.grad(model.loss)
+    client_losses = torch.func.vmap(model.loss)
+    state = unsharded.init(grad_fn, params,
+                           {"tokens": ds.sample_round(0, tau)[0]})
+    del params
+    want = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else t, state)
+    low = train.lower_train_step(plan)
+    got = partition.distribute(state, low.specs[0], mesh)
+    del state
+    rounds = [{"tokens": ds.sample_round(r, tau)} for r in
+              range(SHARDED_ROUNDS)]
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    L.reset_launches()
+    round_s, losses, coll_bytes = [], [], 0
+    for b in rounds:
+        t0 = time.perf_counter()
+        got, coll = low.run(got, b)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        coll_bytes += coll["total_bytes"]
+        x = tree_map(lambda t: t.full_tensor(), unsharded.client_params(got))
+        losses.append(float(mean_client_loss(client_losses, x, b)))
+    launches = dict(L.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    unsharded_s = []
+    for b in rounds:
+        t0 = time.perf_counter()
+        want = unsharded.round(grad_fn, want, b)
+        torch.cuda.synchronize()
+        unsharded_s.append(time.perf_counter() - t0)
+    gaps = {"x": 0.0, "d": 0.0}
+    gi, wi = unsharded._inner(got), unsharded._inner(want)
+    for xg, xw, dg, dw in zip(tree_leaves(gi.x), tree_leaves(wi.x),
+                              tree_leaves(gi.d), tree_leaves(wi.d)):
+        scale = float(xw.abs().max())
+        gaps["x"] = max(gaps["x"], float((xg.full_tensor() - xw).abs().max())
+                        / scale)
+        gaps["d"] = max(gaps["d"], float((dg.full_tensor() - dw).abs().max())
+                        / scale)
+    bitwise = all(torch.equal(a.full_tensor(), b) for a, b in zip(
+        tree_leaves((gi.x, gi.d)), tree_leaves((wi.x, wi.d))))
+    want_launches = {k: SHARDED_ROUNDS * per_round.get(k, 0)
+                     for k in launches}
+    out = {"phase": "sharded", "path": name, "scenario": PATHS[base][0],
+           "arch": plan.cfg.name, "dtype": plan.cfg.dtype, "mesh": "1x1",
+           "backend": "nccl", "n_clients": nc, "batch": batch,
+           "seq_len": seq, "tau": tau, "rounds": SHARDED_ROUNDS,
+           "round_s": round_s, "unsharded_round_s": unsharded_s,
+           "loss": losses, "launches": launches,
+           "state_gap_over_x_scale": gaps, "bitwise": bitwise,
+           "collective_bytes": coll_bytes,
+           "placements_x_embed": str(gi.x["embed"].placements),
+           "max_memory_allocated_bytes": peak,
+           "tolerance": SHARDED_TRAIN_TOL}
+    emit(out)
+    check(launches == want_launches,
+          f"{name}: {SHARDED_ROUNDS} rounds launched {launches}, expected "
+          f"{want_launches}")
+    check(all(math.isfinite(v) for v in losses), f"{name}: loss {losses}")
+    check(max(gaps.values()) <= SHARDED_TRAIN_TOL,
+          f"{name}: x, d differ from the unsharded rounds: {gaps}")
+    check(coll_bytes == 0, f"{name}: {coll_bytes} collective bytes on one "
+                           f"rank")
+    MEASURED[name] = {"arch": plan.cfg.name, "round_s": round_s,
+                      "config": {"n_clients": nc, "batch": batch,
+                                 "seq_len": seq, "tau": tau}}
+    return launches
+
+
+#: the mesh path's per-client gradients against the same clients'
+#: ``torch.autograd.grad`` on plain tensors and against the vmapped
+#: gradients (fedlm-100m, float32, TF32 off): max |a - b| / max |the leaf's
+#: vmapped gradient| over the leaves. Twice the H100's readings, which
+#: repeat exactly: 1.530e-6 and 7.182e-6 (PERF.md).
+GRAD_PATH_TOL = {"dtensor_vs_autograd": 3e-6, "dtensor_vs_vmapped": 1.5e-5}
+
+
+def _per_client_grad_check(mesh):
+    """``core/api.py:per_client_grads``, the mesh path's gradients (each
+    client's rows as DTensors on the one-rank ``model`` sub-mesh, through
+    ``spmd_grad``'s ``torch.autograd.grad`` under the lowered step's
+    layouts), at A_sharded's plan, against three plain (no DTensor) ways:
+    the vmapped ``torch.func.grad`` a one-rank sub-mesh takes, the same a
+    client at a time, and ``torch.autograd.grad`` a client at a time. The
+    gaps between neighbours name the step that moves the sums: batching,
+    the gradient transform, DTensor. The clients share seed 0's weights
+    and take round 0's first batch."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs.base import INPUT_SHAPES, ShapeConfig
+    from repro_torch.core.api import (per_client_grads, replicate, spmd_grad,
+                                      vmap_grads)
+    from repro_torch.data.synthetic import make_hetero_lm_dataset
+    from repro_torch.launch import partition, train
+    from repro_torch.models import build_model
+    from repro_torch.utils.sharding_ctx import activation_sharding
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    nc, batch, seq, tau = (TRAIN[k] for k in ("n_clients", "batch",
+                                               "seq_len", "tau"))
+    INPUT_SHAPES["grad_paths"] = ShapeConfig("grad_paths", seq, nc * batch,
+                                             "train")
+    plan = train.make_plan("fedlm-100m", mesh, shape_name="grad_paths",
+                           tau=tau, alpha=ALPHA, c=C, dtype="float32")
+    plan = dataclasses.replace(plan, n_clients=nc, per_client_batch=batch,
+                               algo=dataclasses.replace(plan.algo,
+                                                        n_clients=nc))
+    low = train.lower_train_step(plan)
+    model = build_model(plan.cfg)
+    x = replicate(model.init(torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda"), nc)
+    ds = make_hetero_lm_dataset(plan.cfg.vocab_size, nc, seq, batch,
+                                heterogeneity=0.8, seed=0, device="cuda")
+    b = {"tokens": ds.sample_round(0, tau)[0]}
+    one = torch.func.grad(model.loss)
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def autograd_one(p, bb):
+        leaves, tdef = pytree.tree_flatten(p)
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        with torch.enable_grad():
+            out = model.loss(pytree.tree_unflatten(leaves, tdef), bb)
+            return pytree.tree_unflatten(
+                list(torch.autograd.grad(out, leaves)), tdef)
+
+    def each(fn):
+        return tree_map(lambda *gs: torch.stack(gs), *[
+            fn(tree_map(lambda t: t[i], x), {"tokens": b["tokens"][i]})
+            for i in range(nc)])
+
+    vm = timed("vmapped_ms", lambda: vmap_grads(one)(x, b))
+    plain = timed("plain_ms", lambda: each(one))
+    auto = timed("autograd_ms", lambda: each(autograd_one))
+    spec = low.specs[0]
+    dx = partition.distribute(x, getattr(spec, "inner", spec).x, mesh)
+    db = partition.distribute(b, partition.batch_shardings(
+        b, mesh, dim_axes=(plan.client_axes, train._fsdp(plan))), mesh)
+    with activation_sharding(residual=low.residual, logits=low.logits,
+                             moe_shards=low.moe), implicit_replication():
+        dt = timed("dtensor_ms", lambda: per_client_grads(
+            spmd_grad(model.loss), dx, db, plan.client_axes))
+    placements = str(tree_leaves(dt)[0].placements)
+    dt = tree_map(lambda t: t.full_tensor(), dt)
+
+    def gap(a, c):
+        return max(float((u - v).abs().max()) / float(w.abs().max())
+                   for u, v, w in zip(tree_leaves(a), tree_leaves(c),
+                                      tree_leaves(vm)))
+
+    def same(a, c):
+        return all(torch.equal(u, v) for u, v in
+                   zip(tree_leaves(a), tree_leaves(c)))
+
+    pairs = {"plain_vs_vmapped": (plain, vm),
+             "autograd_vs_plain": (auto, plain),
+             "dtensor_vs_autograd": (dt, auto),
+             "dtensor_vs_vmapped": (dt, vm)}
+    gaps = {k: gap(*v) for k, v in pairs.items()}
+    out = {"phase": "sharded", "path": "grad_paths", "arch": plan.cfg.name,
+           "dtype": plan.cfg.dtype, "mesh": "1x1", "backend": "nccl",
+           "n_clients": nc, "batch": batch, "seq_len": seq,
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "placements_grad": placements, "gap_over_grad_scale": gaps,
+           "bitwise": {k: same(*v) for k, v in pairs.items()},
+           **times, "tolerance": GRAD_PATH_TOL}
+    emit(out)
+    check(all(math.isfinite(v) for v in gaps.values()),
+          f"grad_paths: non-finite gradients: {gaps}")
+    for k, tol in GRAD_PATH_TOL.items():
+        check(gaps[k] <= tol,
+              f"grad_paths: {k} {gaps[k]} above {tol}")
+
+
 def phase_sharded():
-    """S1 and S3 through the sharded serving steps on a real one-rank
-    NCCL process group and a 1 x 1 ("data", "model") mesh on the card."""
+    """S1 and S3 through the sharded serving steps, and the train round
+    under A's and C's scenarios through the lowered train step, on a real
+    one-rank NCCL process group and a 1 x 1 ("data", "model") mesh on the
+    card."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_test_mesh
@@ -2775,6 +3022,13 @@ def phase_sharded():
             launches[name + "_sharded"] = _sharded_path(name, mesh)
             gc.collect()
             torch.cuda.empty_cache()
+        for name in SHARDED_TRAIN:
+            launches[name] = _sharded_train_path(name, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+        _per_client_grad_check(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     return launches
@@ -2785,20 +3039,27 @@ def phase_sharded():
 DRYRUN_CELLS = (("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
                 ("granite-moe-3b-a800m", "prefill_32k"),
                 ("mamba2-130m", "long_500k"),
-                ("llama4-scout-17b-a16e", "decode_32k"))
+                ("llama4-scout-17b-a16e", "decode_32k"),
+                ("qwen3-1.7b", "train_4k"),
+                ("llama4-scout-17b-a16e", "train_4k"))
 DRYRUN_SCRIPT = r"""
 import json, sys
-from repro_torch.launch import dryrun, partition, serve
+from repro_torch.launch import dryrun, partition, serve, train
 from repro_torch.launch.mesh import (axis_size, fake_world,
                                      make_production_mesh)
 
 cells = json.loads(sys.argv[1])
 with fake_world(256):
-    mesh = make_production_mesh()
     for arch, shape in cells:
         rec = dryrun.run_one(arch, shape, multi_pod=False)
-        low = (serve.lower_prefill if "prefill" in shape
-               else serve.lower_decode)(arch, mesh, shape_name=shape)
+        mesh = make_production_mesh()
+        if shape == "train_4k":
+            low = train.lower_train_step(train.make_plan(arch, mesh),
+                                         donate=False)
+            mesh = low.plan.mesh
+        else:
+            low = (serve.lower_prefill if "prefill" in shape
+                   else serve.lower_decode)(arch, mesh, shape_name=shape)
         want = 0  # the local shards' bytes, from the specs' arithmetic
         for tree, specs in zip(low.abstract, low.specs):
             for (_, leaf), spec in zip(partition._leaves(tree)[0],
@@ -2894,8 +3155,8 @@ def main() -> int:
     phase_plans()
     paths.update(phase_trainer())
     paths.update(phase_serve())
-    phase_roofline()
     paths.update(phase_sharded())
+    phase_roofline()
     phase_dryrun()
     summary = []
     for form, (src, replaces) in KERNELS.items():

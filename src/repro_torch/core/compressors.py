@@ -81,6 +81,35 @@ def _coord_shape(leaf) -> tuple:
     return tuple(leaf.shape[1:])
 
 
+def reference_leaf_index(tree) -> list[int]:
+    """Each leaf's position (``tree``'s leaves in torch's pytree order) in
+    the reference's flatten order. JAX flattens a dict by sorted key,
+    torch in insertion order; lists and tuples flatten in order in both.
+    The per-leaf subkeys ``fold_in(key, i)`` take this ``i``, so a message
+    draws the reference's dithers whatever order its dicts were built
+    in."""
+    paths = [p for p, _ in pytree.tree_flatten_with_path(tree)[0]]
+    first: dict = {}    # a path prefix -> its rank among its siblings
+    children: dict = {}
+    keys = []
+    for p in paths:
+        k = []
+        for depth, c in enumerate(p):
+            if isinstance(c, pytree.MappingKey):
+                k.append(c.key)
+                continue
+            pre = p[:depth + 1]
+            if pre not in first:
+                first[pre] = children.get(p[:depth], 0)
+                children[p[:depth]] = first[pre] + 1
+            k.append(first[pre])
+        keys.append(tuple(k))
+    index = [0] * len(paths)
+    for rank, j in enumerate(sorted(range(len(paths)), key=keys.__getitem__)):
+        index[j] = rank
+    return index
+
+
 def _is_arena(x) -> bool:
     return isinstance(x, ar.Arena)
 
@@ -204,11 +233,13 @@ class Compressor:
 
     def apply(self, key, msg, extra):
         """Compress a message tree; distinct subkey ``fold_in(key, i)`` per
-        leaf. Arena-packed messages route through ``apply_arena``."""
+        leaf, ``i`` its :func:`reference_leaf_index`. Arena-packed messages
+        route through ``apply_arena``."""
         if _has_arena(msg):
             return self.apply_arena(key, msg, extra)
         leaves, spec = pytree.tree_flatten(msg)
-        out = [self.compress(prng.fold_in(key, i) if self.requires_key
+        index = reference_leaf_index(msg) if self.requires_key else None
+        out = [self.compress(prng.fold_in(key, index[i]) if self.requires_key
                              else None, leaf)
                for i, leaf in enumerate(leaves)]
         return pytree.tree_unflatten(out, spec), extra
@@ -361,7 +392,9 @@ class StochasticQuant(Compressor):
         packed next to the data (pad dither 0 keeps pads at exactly 0)."""
         shapes = [((lead,) + s if self.per_client_dither else s)
                   for s in layout.shapes]
-        u = [prng.uniform(prng.fold_in(key, i), s, dtype=layout.dtype,
+        index = reference_leaf_index(pytree.tree_unflatten(
+            [0] * len(shapes), layout.treedef))
+        u = [prng.uniform(prng.fold_in(key, index[i]), s, dtype=layout.dtype,
                           device=device) for i, s in enumerate(shapes)]
         return ar.pack_rows(u, layout,
                             lead=lead if self.per_client_dither else None)
@@ -691,8 +724,8 @@ class CompressionPlan(Compressor):
     index (the order of ``ArenaLayout.row_segments``). Unmatched leaves
     fall through to ``default`` (``None`` = dense f32 passthrough).
 
-    Leaf ``i`` is compressed with subkey ``fold_in(key, i)``, the uniform
-    per-tree enumeration, and stateful rule wrappers (:class:`Shifted`,
+    Leaf ``i`` is compressed with subkey ``fold_in(key, j)``, ``j`` its
+    :func:`reference_leaf_index` (the uniform per-tree enumeration), and stateful rule wrappers (:class:`Shifted`,
     :class:`ErrorFeedback`) run leaf by leaf against a message-shaped
     memory tree: a plan mapping EVERY leaf to one spec is bitwise equal to
     uniform ``with_compression`` with that spec, and checkpoints
@@ -836,10 +869,11 @@ class CompressionPlan(Compressor):
         flat, spec = pytree.tree_flatten_with_path(msg)
         e_leaves = (tree_leaves(extra) if extra is not None
                     else [None] * len(flat))
+        index = reference_leaf_index(msg)
         out, new_e = [], []
         for i, ((path, leaf), e) in enumerate(zip(flat, e_leaves)):
             comp = self.resolve(i, leaf_name(path))
-            sub = (prng.fold_in(key, i)
+            sub = (prng.fold_in(key, index[i])
                    if key is not None and comp is not None
                    and comp.requires_key else None)
             o, ne = self._apply_leaf(comp, sub, leaf, e)

@@ -81,10 +81,14 @@ float32 LM entry points (``run_training`` builds its algorithm so).
 PyTorch runs eagerly, so the reference's ``lax.scan`` over local steps and
 over rounds become Python loops, and the step counter ``t`` is a Python
 int: every PRNG key of a round is derived on the host, and only the bulk
-draws run on the card. ``spmd_client_axes`` (the clients' mesh axes of
-the reference's SPMD round) stays a field, and setting it raises
-``NotImplementedError`` naming the slice that ports it: slice 14, the
-training lowering, on top of ``launch/{mesh,partition}.py``.
+draws run on the card. ``spmd_client_axes`` names the clients' mesh axes
+of the production round (``launch/train.py:make_plan``): on a state of
+DTensors whose dim 0 is sharded over them, each rank computes the
+gradients of its own clients (``api.vmap_grads``), the FedCET kernels run
+on the local shards (``kernels/ops.py``), and every client mean reduces
+across the client axes to a value (``utils/tree.py:tree_client_mean``,
+:func:`masked_client_mean`, ``core/staleness.py:weighted_client_mean``).
+On plain tensors the field changes nothing.
 """
 
 from __future__ import annotations
@@ -103,10 +107,8 @@ from repro_torch.core.staleness import (DelayState, StalenessConfig,
                                         parse_delay, parse_policy,
                                         weighted_client_mean)
 from repro_torch.core.topology import parse_topology
+from repro_torch.utils.sharding_ctx import resolve_partial
 from repro_torch.utils.tree import tree_client_mean, tree_leaves, tree_map
-
-#: engine fields whose mechanisms later slices port (see ROADMAP.md).
-_LATER = {"spmd_client_axes": "slice 14 (the training lowering)"}
 
 
 class EngineState(NamedTuple):
@@ -139,12 +141,14 @@ def participation_mask(key, n_clients: int, rate: float) -> torch.Tensor:
 
 def masked_client_mean(tree, mask: torch.Tensor, *, keepdims: bool = True):
     """Mean over the leading clients axis restricted to ``mask``-selected
-    clients (the server average under partial participation)."""
+    clients (the server average under partial participation); on a
+    client-sharded DTensor the sum is reduced across the client axes."""
     denom = torch.clamp(mask.to(torch.int64).sum(), min=1)
 
     def mean_leaf(a):
         mb = mask.reshape((-1,) + (1,) * (a.dim() - 1)).to(a.dtype)
-        return torch.sum(a * mb, dim=0, keepdim=keepdims) / denom.to(a.dtype)
+        return resolve_partial(torch.sum(a * mb, dim=0, keepdim=keepdims)
+                               / denom.to(a.dtype))
 
     return tree_map(mean_leaf, tree)
 
@@ -458,18 +462,13 @@ class RoundEngine:
     #: (core/arena.py); attach via ``with_arena``.
     arena: bool = dataclasses.field(default=False, kw_only=True)
     telemetry: Any | None = dataclasses.field(default=None, kw_only=True)
+    #: mesh axes carrying the client dimension (the production lowering,
+    #: ``launch/train.py``; see the module docstring).
     spmd_client_axes: tuple = dataclasses.field(default=(), kw_only=True)
     #: the dtypes of the round's random draws and weights: float64 / int64
     #: (the reference's under ``jax_enable_x64``: its tests, the float64
     #: quadratic) or, False, float32 / int32 (its float32 LM entry points).
     x64: bool = dataclasses.field(default=True, kw_only=True)
-
-    def __post_init__(self):
-        for name, where in _LATER.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"RoundEngine.{name} is not yet ported to PyTorch: it "
-                    f"comes with {where}")
 
     # ------------------------------------------------------------ spec hooks
     def init_warmup(self, gf, x0, init_batch):
@@ -652,7 +651,8 @@ class RoundEngine:
 
     # ------------------------------------------------------------- plumbing
     def _grad(self, grad_fn: GradFn) -> GradFn:
-        gf = vmap_grads(grad_fn)
+        gf = vmap_grads(grad_fn,
+                        spmd_axis_name=self.spmd_client_axes or None)
         if self.arena:
             base = gf
 

@@ -50,6 +50,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core import prng
+from repro_torch.utils.sharding_ctx import resolve_partial
 from repro_torch.utils.tree import tree_map
 
 __all__ = [
@@ -84,13 +85,15 @@ def weighted_client_mean(tree, w: torch.Tensor):
     (normalized here; an all-zero ``w`` yields zeros). Reduces to the plain
     client mean for any uniform positive ``w``. The zero-sum guard does not
     clamp small positive sums: a clamp would silently shrink the mean of
-    weights that sum below 1."""
-    s = torch.sum(w)
+    weights that sum below 1. On a client-sharded DTensor the sums are
+    reduced across the client axes: a value, not a pending sum."""
+    s = resolve_partial(torch.sum(w))
     denom = torch.where(s > 0, s, torch.ones_like(s))
 
     def mean_leaf(a):
         wb = w.reshape((-1,) + (1,) * (a.dim() - 1)).to(a.dtype)
-        return torch.sum(a * wb, dim=0, keepdim=True) / denom.to(a.dtype)
+        return resolve_partial(torch.sum(a * wb, dim=0, keepdim=True)
+                               / denom.to(a.dtype))
 
     return tree_map(mean_leaf, tree)
 

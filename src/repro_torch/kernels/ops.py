@@ -16,19 +16,34 @@ Unlike the reference's TPU wrappers there is no ``[rows, 1024]`` tiling or
 padding, and no broadcast operand is materialized: the CUDA kernels work
 on the flat leaf and broadcast the shared operand themselves.
 
-The two serving kernels, ``flash_attention`` and ``ssd_intra``, are
-reached through custom ops (``torch.ops.repro_torch.*``) with fake
-implementations: on fake tensors (the dry run's local shards) they give
-the true output shape and allocate none of the plain version's
-intermediates. On DTensors the wrappers run the op on each rank's local
-shards when the layout lets every shard compute alone: per mesh dim, all
-operands sharded on the batch dim, or on the head dim (attention: every
-operand, when the KV heads divide; SSD: x, dt and a_cs, with B and C
-replicated), or all replicated. Any other layout raises: nothing is
-gathered behind the caller's back (the callers in ``models/`` bring their
-operands to such a layout first). Under autograd the wrappers skip the
-custom ops, which have no backward: the plain version differentiates, the
-kernels raise as before.
+The FedCET triad and pair, the per-leaf quantizer and the two serving
+kernels, ``flash_attention`` and ``ssd_intra``, are reached through custom
+ops (``torch.ops.repro_torch.*``) with fake implementations: on fake
+tensors (the dry run's local shards) they give the true output shape and
+allocate none of the plain version's intermediates. On DTensors the
+wrappers run the op on each rank's local shards when the layout lets
+every shard compute alone, and place the result as the first operand:
+
+* ``fedcet_v``, ``fedcet_comm``: the elementwise operands (``x``, ``g``,
+  ``d``; ``d``, ``m``, ``v``) carry equal placements on every mesh dim;
+  ``m_bar`` (the ``[1, ...]`` client mean) is replicated where they shard
+  the clients (dim 0) and carries their placement elsewhere, its pending
+  sums reduced first (they are its value);
+* ``stochastic_quantize``: the scale, a max over the whole stacked leaf,
+  is reduced over every mesh dim (a shard's own max would give other
+  codes) and must end replicated; a plain dither is the full leaf's draw,
+  of which each rank takes its shard's coordinates, so the sharded round
+  draws what the unsharded one does;
+* attention: per mesh dim, all operands sharded on the batch dim, or on
+  the head dim when the KV heads divide, or all replicated; SSD: the
+  batch dim, or the head dim for x, dt and a_cs with B and C replicated,
+  or all replicated.
+
+Any other layout raises: nothing is gathered behind the caller's back
+(the callers in ``models/`` and ``core/`` bring their operands to such a
+layout first). Under autograd the serving wrappers skip their custom ops,
+which have no backward: the plain version differentiates, the kernels
+raise as before.
 """
 
 from __future__ import annotations
@@ -42,7 +57,7 @@ from repro_torch.kernels import quantize as KQ
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import ssd_intra as KS
 from repro_torch.kernels import telemetry_reduce as KT
-from repro_torch.utils.sharding_ctx import is_dtensor
+from repro_torch.utils.sharding_ctx import is_dtensor, resolve_partial
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -53,11 +68,59 @@ def _use_kernel(impl: str, t: torch.Tensor) -> bool:
     raise ValueError(f"unknown impl {impl!r} (auto | kernel | ref)")
 
 
-def fedcet_v(x, g, d, alpha: float, impl: str = "auto"):
-    """Fused FedCET local-step triad (see kernels/ref.py:fedcet_v)."""
-    if _use_kernel(impl, x):
+@torch.library.custom_op("repro_torch::fedcet_v", mutates_args=())
+def _fedcet_v_op(x: torch.Tensor, g: torch.Tensor, d: torch.Tensor,
+                 alpha: float, kernel: bool) -> torch.Tensor:
+    if kernel:
         return K.fedcet_v(x, g, d, alpha)
     return R.fedcet_v(x, g, d, alpha)
+
+
+@_fedcet_v_op.register_fake
+def _(x, g, d, alpha, kernel):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::fedcet_comm", mutates_args=())
+def _fedcet_comm_op(d: torch.Tensor, m: torch.Tensor, m_bar: torch.Tensor,
+                    v: torch.Tensor | None, c: float, alpha: float,
+                    kernel: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    if kernel:
+        return K.fedcet_comm(d, m, m_bar, c, alpha, v=v)
+    return R.fedcet_comm(d, m, m_bar, c, alpha, v=v)
+
+
+@_fedcet_comm_op.register_fake
+def _(d, m, m_bar, v, c, alpha, kernel):
+    return torch.empty_like(d), torch.empty_like(m)
+
+
+@torch.library.custom_op("repro_torch::stochastic_quantize", mutates_args=())
+def _quantize_op(a: torch.Tensor, u: torch.Tensor, scale: torch.Tensor,
+                 bits: int, kernel: bool) -> torch.Tensor:
+    if kernel:
+        return KQ.stochastic_quantize(a, u, scale, bits)
+    return R.stochastic_quantize(a, u, scale, bits)
+
+
+@_quantize_op.register_fake
+def _(a, u, scale, bits, kernel):
+    return torch.empty_like(a)
+
+
+def _same(mesh_dim, pl) -> bool:
+    """Equal placements, none a pending sum: elementwise operands."""
+    return all(p == pl[0] for p in pl) and not pl[0].is_partial()
+
+
+def fedcet_v(x, g, d, alpha: float, impl: str = "auto"):
+    """Fused FedCET local-step triad (see kernels/ref.py:fedcet_v).
+    DTensors run shard-local under equal placements or raise."""
+    kernel = _use_kernel(impl, x)
+    if is_dtensor(x):
+        return _local(_fedcet_v_op, "fedcet_v", (x, g, d), _same, alpha,
+                      kernel)
+    return _fedcet_v_op(x, g, d, alpha, kernel)
 
 
 def fedcet_comm(d, m, m_bar, c: float, alpha: float, v=None,
@@ -66,20 +129,92 @@ def fedcet_comm(d, m, m_bar, c: float, alpha: float, v=None,
 
     ``m`` is the client's own WIRE message; pass ``v`` (the exact local
     vector) when the message path is compressed. ``v=None`` keeps the
-    uncompressed behavior (``v = m``). Returns ``(d', x')``."""
-    if _use_kernel(impl, m):
-        return K.fedcet_comm(d, m, m_bar, c, alpha, v=v)
-    return R.fedcet_comm(d, m, m_bar, c, alpha, v=v)
+    uncompressed behavior (``v = m``). Returns ``(d', x')``. DTensors run
+    shard-local (see the module docstring) or raise."""
+    kernel = _use_kernel(impl, m)
+    if not is_dtensor(m):
+        return _fedcet_comm_op(d, m, m_bar, v, c, alpha, kernel)
+    from torch.distributed.tensor import Replicate, Shard
+
+    m_bar = resolve_partial(m_bar)
+    mean = m_bar.shape[0] == 1  # the [1, ...] mean, not a per-client one
+    ops = (d, m) + (() if v is None else (v,)) + (m_bar,)
+
+    def allowed(mesh_dim, pl):
+        *elem, mb = pl
+        if not _same(mesh_dim, elem):
+            return False
+        if elem[0] == Shard(0) and mean:
+            return mb == Replicate()
+        return mb == elem[0]
+
+    def op(d_, m_, *rest):
+        v_ = rest[0] if v is not None else None
+        return _fedcet_comm_op(d_, m_, rest[-1], v_, c, alpha, kernel)
+
+    return _local(op, "fedcet_comm", ops, allowed)
 
 
 def stochastic_quantize(a, u, scale, bits: int, impl: str = "auto"):
     """Fused dithered-quantize round-trip over a stacked ``[C, ...]`` leaf
     (see kernels/ref.py:stochastic_quantize). ``u`` is the dither, of the
     leaf's coordinate shape (client-shared) or of ``a``'s shape;
-    ``scale`` the per-leaf step as a one-element tensor."""
-    if _use_kernel(impl, a):
-        return KQ.stochastic_quantize(a, u, scale, bits)
-    return R.stochastic_quantize(a, u, scale, bits)
+    ``scale`` the per-leaf step as a one-element tensor. On a DTensor
+    ``a`` the scale is reduced over the mesh and the dither taken at the
+    shard's coordinates (see the module docstring)."""
+    kernel = _use_kernel(impl, a)
+    if not is_dtensor(a):
+        return _quantize_op(a, u, scale, bits, kernel)
+    from torch.distributed.tensor import DTensor
+
+    scale = resolve_partial(scale)
+    if is_dtensor(scale):
+        if any(not p.is_replicate() for p in scale.placements):
+            raise ValueError(f"stochastic_quantize: the scale must be one "
+                             f"replicated value, got {scale.placements}")
+        scale = scale.to_local()
+    if any(p.is_partial() for p in a.placements):
+        raise ValueError(f"stochastic_quantize: a has pending sums "
+                         f"{a.placements}; reduce them first")
+    out = _quantize_op(a.to_local(), _dither_shard(u, a), scale, bits,
+                       kernel)
+    return DTensor.from_local(out, a.device_mesh, a.placements,
+                              run_check=False, shape=a.shape,
+                              stride=a.stride())
+
+
+def _dither_shard(u, a):
+    """This rank's part of the dither ``u`` for the DTensor ``a``: ``u``
+    shaped like ``a`` (per client) or like one client (shared, so the
+    mesh dims that shard the clients leave it whole). A plain ``u`` is
+    the full draw and is cut to the shard's coordinates; a DTensor ``u``
+    must already be placed so."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    lead = 0 if tuple(u.shape) == tuple(a.shape) else 1
+    if lead and tuple(u.shape) != tuple(a.shape[1:]):
+        raise ValueError(f"stochastic_quantize: u must be shaped like a "
+                         f"{tuple(a.shape)} or like one client "
+                         f"{tuple(a.shape[1:])}, got {tuple(u.shape)}")
+    mesh = a.device_mesh
+    want = [Shard(p.dim - lead) if p.is_shard() and p.dim >= lead
+            else Replicate() for p in a.placements]
+    if is_dtensor(u):
+        if list(u.placements) != want:
+            raise ValueError(f"stochastic_quantize: u has placements "
+                             f"{u.placements}, the shard needs {want}")
+        return u.to_local()
+    coord = mesh.get_coordinate()
+    for m, p in enumerate(want):
+        if p.is_shard():
+            n = mesh.size(m)
+            if u.shape[p.dim] % n:
+                raise ValueError(f"stochastic_quantize: dim {p.dim} of u "
+                                 f"{tuple(u.shape)} does not divide over "
+                                 f"{n} ranks")
+            size = u.shape[p.dim] // n
+            u = u.narrow(p.dim, coord[m] * size, size)
+    return u.contiguous()
 
 
 def stochastic_quantize_rows(a, u, scale_rows, bits: int, impl: str = "auto"):
@@ -206,21 +341,25 @@ def _needs_grad(*ts) -> bool:
 def _local(op, name: str, ops: tuple, allowed, *args):
     """``op`` on each rank's local shards of the DTensors ``ops`` when
     ``allowed(m, placements)`` holds on every mesh dim ``m`` (the
-    placements of ``ops`` on it); the result is placed as ``ops[0]``."""
+    placements of ``ops`` on it); each result is placed as ``ops[0]``."""
     from torch.distributed.tensor import DTensor
 
     mesh = ops[0].device_mesh
+    if not all(is_dtensor(t) and t.device_mesh == mesh for t in ops):
+        raise ValueError(f"{name}: every operand must be a DTensor on one "
+                         f"mesh")
     for m in range(mesh.ndim):
         pl = tuple(t.placements[m] for t in ops)
         if not allowed(m, pl):
             raise ValueError(
                 f"{name}: mesh dim {mesh.mesh_dim_names[m]!r} has placements "
-                f"{pl}; the kernel runs on local shards only when every "
-                f"operand is batch-sharded, head-sharded or replicated "
-                f"there; redistribute first")
+                f"{pl}, a layout on which the shards cannot compute alone; "
+                f"redistribute first")
     out = op(*(t.to_local() for t in ops), *args)
-    return DTensor.from_local(out, mesh, ops[0].placements, run_check=False,
-                              shape=ops[0].shape, stride=ops[0].stride())
+    place = lambda o: DTensor.from_local(  # noqa: E731
+        o, mesh, ops[0].placements, run_check=False, shape=ops[0].shape,
+        stride=ops[0].stride())
+    return tuple(map(place, out)) if isinstance(out, tuple) else place(out)
 
 
 def _all(pl, *want) -> bool:

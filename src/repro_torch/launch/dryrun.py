@@ -1,11 +1,12 @@
-"""Multi-pod dry run: prove the serving distribution is coherent (port of
-``src/repro/launch/dryrun.py``).
+"""Multi-pod dry run: prove the training and serving distribution is
+coherent (port of ``src/repro/launch/dryrun.py``).
 
 For every (architecture x input shape x mesh) combination this builds the
-production step (serve prefill for prefill_32k, the one-token cached
-decode step for decode_32k / long_500k) over a 16 x 16 (or 2 x 16 x 16)
-mesh in a fake process group of 256 (512) ranks (``launch/mesh.py:
-fake_world``), traces it on fake local shards, and records
+production step (the FedCET train round for train_4k, serve prefill for
+prefill_32k, the one-token cached decode step for decode_32k / long_500k)
+over a 16 x 16 (or 2 x 16 x 16) mesh in a fake process group of 256
+(512) ranks (``launch/mesh.py:fake_world``), traces it on fake local
+shards, and records
 
   * the per-device memory: argument, temp (the peak of live storages)
     and output bytes of rank 0's shards;
@@ -16,10 +17,11 @@ fake_world``), traces it on fake local shards, and records
 
 Nothing touches a device: the shards are fake tensors and every
 collective of the fake backend returns at once. Configs are cast to
-bfloat16, as the reference's. Shapes of kind ``train`` are recorded as
-skipped: the training lowering comes with the next slice.
+bfloat16, as the reference's. A train cell lowers donation-free
+(``lower_train_step(plan, donate=False)``), as the reference's.
 
 Usage:
+  python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape decode_32k
   python -m repro_torch.launch.dryrun --all --out build/dryrun/dryrun.json
   python -m repro_torch.launch.dryrun --all --multi-pod
@@ -30,10 +32,6 @@ import json
 import os
 import time
 import traceback
-
-TRAIN_SKIP = ("the training lowering comes with the next slice "
-              "(ROADMAP.md Queue 1)")
-
 
 def run_one(arch: str, shape_name: str, *, multi_pod: bool,
             verbose: bool = True) -> dict:
@@ -50,8 +48,6 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
            "status": "ok"}
 
     ok, why = supports_shape(cfg, shape)
-    if ok and shape.kind == "train":
-        ok, why = False, TRAIN_SKIP
     if not ok:
         rec.update(status="skipped", reason=why)
         if verbose:
@@ -61,7 +57,13 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
     mesh = make_production_mesh(multi_pod=multi_pod)
     n_devices = mesh.size()
     t0 = time.time()
-    if shape.kind == "prefill":
+    if shape.kind == "train":
+        from repro_torch.launch.train import lower_train_step, make_plan
+
+        lowered = lower_train_step(make_plan(arch, mesh,
+                                             shape_name=shape_name),
+                                   donate=False)
+    elif shape.kind == "prefill":
         from repro_torch.launch.serve import lower_prefill
 
         lowered = lower_prefill(arch, mesh, shape_name=shape_name)
@@ -118,16 +120,21 @@ def merge_results(path: str, records: list[dict]) -> None:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default=None)
-    ap.add_argument("--shape", default=None)
+    from repro_torch.configs import ASSIGNED, INPUT_SHAPES
+
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default=None, choices=ASSIGNED + ("fedlm-100m",))
+    ap.add_argument("--shape", default=None, choices=tuple(INPUT_SHAPES),
+                    help="train_4k (the FedCET train round), prefill_32k, "
+                         "decode_32k or long_500k")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true",
                     help="every (arch x shape) for the chosen mesh")
     ap.add_argument("--out", default="build/dryrun/dryrun.json")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs import ASSIGNED, INPUT_SHAPES
     from repro_torch.launch.mesh import fake_world
 
     if args.all:

@@ -1,5 +1,6 @@
 """Model-input construction (port of ``src/repro/launch/input_specs.py``:
-``batch_shapes`` and ``make_batch``).
+``batch_shapes``, ``make_batch``, ``batch_specs`` and
+``fed_batch_specs``).
 
 Batch layouts per family:
   text/moe/ssm/hybrid : ``{"tokens": [B, S] int32}``
@@ -13,8 +14,8 @@ tokens through ``core/prng.py``'s ``randint`` bit for bit, the embeddings
 as ``normal * 0.02`` in the key's float dtype (float64 under the x64 the
 reference's tests turn on, float32 without it), then cast to
 ``cfg.dtype``; ``prng.normal`` agrees with ``jax.random.normal`` to a few
-ulps. The ``ShapeDtypeStruct`` stand-ins of the dry-run have no
-counterpart.
+ulps. The dry run's stand-ins (the reference's ``ShapeDtypeStruct``) are
+tensors on the ``meta`` device: shapes and dtypes, nothing allocated.
 """
 
 from __future__ import annotations
@@ -55,3 +56,21 @@ def make_batch(cfg: ArchConfig, batch: int, seq_len: int, *, key=0,
             out[name] = prng.randint(k, shape, 0, cfg.vocab_size, dtype,
                                      device=device)
     return out
+
+
+def batch_specs(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """``meta`` stand-ins of a single batch for the dry run (never
+    allocated)."""
+    return {name: torch.empty(shape, dtype=dtype, device="meta")
+            for name, (shape, dtype) in batch_shapes(cfg, batch,
+                                                     seq_len).items()}
+
+
+def fed_batch_specs(cfg: ArchConfig, tau: int, n_clients: int,
+                    per_client_batch: int, seq_len: int) -> dict:
+    """``[tau, clients, ...]`` ``meta`` stand-ins for the federated train
+    step."""
+    return {name: torch.empty((tau, n_clients) + shape, dtype=dtype,
+                              device="meta")
+            for name, (shape, dtype) in batch_shapes(
+                cfg, per_client_batch, seq_len).items()}

@@ -140,6 +140,11 @@ def tree_shardings(tree, mesh: DeviceMesh, tp: int,
     return _map_tensors(lambda path, leaf: next(specs), tree)
 
 
+def replicated_shardings(tree):
+    """A replicated spec (``()``) for every tensor leaf of ``tree``."""
+    return _map_tensors(lambda path, leaf: (), tree)
+
+
 def _map_tensors(fn, tree):
     leaves, treedef = _leaves(tree)
     return pytree.tree_unflatten(

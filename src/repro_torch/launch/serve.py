@@ -42,10 +42,10 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import weakref
 from typing import Any
 
 import torch
-from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map
 
@@ -170,30 +170,33 @@ class _LiveBytes(TorchDispatchMode):
     """The peak bytes of the storages a step creates and holds at once, on
     this rank: its local shards in ``fake_mode``, the step's arguments not
     counted (nor the global-shape stand-ins DTensor's sharding propagation
-    makes in a fake mode of its own)."""
+    makes in a fake mode of its own). A storage's bytes are counted from
+    the op that creates it until it is freed (a finalizer on its Python
+    object, which lives as long as the storage)."""
 
     def __init__(self, args, fake_mode):
         super().__init__()
         self._mode = fake_mode
         self._arg_keys = {_storage_key(t) for t in _locals(args)}
-        self._live: dict[int, tuple[StorageWeakRef, int]] = {}
-        self.peak = 0
+        self._live: dict[int, int] = {}
+        self.total = self.peak = 0
+
+    def _free(self, key: int) -> None:
+        self.total -= self._live.pop(key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if _defer_to_subclass(types):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
-        for key in [k for k, (ref, _) in self._live.items() if ref.expired()]:
-            del self._live[key]
         for t in _locals(out):
-            key = _storage_key(t)
-            # a key is a storage's address: a live one is a view's storage,
-            # an expired one's address may be taken by a new storage
+            st = t.untyped_storage()
+            key = st._cdata
             if getattr(t, "fake_mode", None) is self._mode and \
                     key not in self._arg_keys and key not in self._live:
-                st = t.untyped_storage()
-                self._live[key] = (StorageWeakRef(st), st.nbytes())
-        self.peak = max(self.peak, sum(b for _, b in self._live.values()))
+                self._live[key] = st.nbytes()
+                self.total += st.nbytes()
+                weakref.finalize(st, self._free, key).atexit = False
+        self.peak = max(self.peak, self.total)
         return out
 
 
@@ -209,6 +212,31 @@ def _locals(tree):
 
 def _storage_key(t: torch.Tensor) -> int:
     return t.untyped_storage()._cdata
+
+
+def trace_on_fake_shards(step, abstract: tuple, specs: tuple, mesh) -> dict:
+    """``step(*args)`` on fake local shards of the ``meta`` trees
+    ``abstract`` under their ``specs`` (a fake process group, no device):
+    ``memory`` as argument, temp (the peak of live storages) and output
+    bytes of this rank, and ``collectives``, the counter's summary."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fm = FakeTensorMode(allow_non_fake_inputs=True)
+    args = tuple(partition.distribute(t, s, mesh, fm)
+                 for t, s in zip(abstract, specs))
+    # storages die by reference count alone while the step runs, so the
+    # peak does not depend on when the cycle collector happens to run
+    gc.collect()
+    gc.disable()
+    try:
+        with CollectiveCounter() as cc, _LiveBytes(args, fm) as live:
+            out = step(*args)
+    finally:
+        gc.enable()
+    return {"memory": {"argument_bytes": partition.local_bytes(args),
+                       "temp_bytes": int(live.peak),
+                       "output_bytes": partition.local_bytes(out)},
+            "collectives": cc.collective_summary()}
 
 
 @dataclasses.dataclass
@@ -248,24 +276,8 @@ class LoweredServe:
         device): ``memory`` as argument, temp (the peak of live storages)
         and output bytes per device, and ``collectives``, the counter's
         summary."""
-        from torch._subclasses.fake_tensor import FakeTensorMode
-
-        fm = FakeTensorMode(allow_non_fake_inputs=True)
-        args = tuple(partition.distribute(t, s, self.mesh, fm)
-                     for t, s in zip(self.abstract, self.specs))
-        # storages die by reference count alone while the step runs, so the
-        # peak does not depend on when the cycle collector happens to run
-        gc.collect()
-        gc.disable()
-        try:
-            with CollectiveCounter() as cc, _LiveBytes(args, fm) as live:
-                out = self._step(*args)
-        finally:
-            gc.enable()
-        return {"memory": {"argument_bytes": partition.local_bytes(args),
-                           "temp_bytes": int(live.peak),
-                           "output_bytes": partition.local_bytes(out)},
-                "collectives": cc.collective_summary()}
+        return trace_on_fake_shards(self._step, self.abstract, self.specs,
+                                    self.mesh)
 
     def run(self, params, inputs, caches):
         """Run the step for real: the trees (tensors, or DTensors such as
@@ -302,9 +314,7 @@ def _lower(kind: str, arch: str, mesh, shape_name: str, dtype: str,
                             (params, inputs, caches), (p_sh, in_sh, c_sh),
                             residual=(None, None, "model"), logits=None,
                             moe=None)
-    inputs = {name: torch.empty(shape, dtype=dt, device="meta")
-              for name, (shape, dt) in ispec.batch_shapes(
-                  cfg, shp.global_batch, shp.seq_len).items()}
+    inputs = ispec.batch_specs(cfg, shp.global_batch, shp.seq_len)
     in_sh = partition.batch_shardings(inputs, mesh, dim_axes=(ba,))
     moe = _moe_ctx(cfg, mesh, shp.global_batch, seq_sharded=True)
     return LoweredServe("prefill", cfg, model, mesh,

@@ -1,5 +1,5 @@
-"""Federated LM training driver, single host (port of
-``src/repro/launch/train.py``: ``run_training`` and ``main``).
+"""Federated LM training: the single-host driver and the production
+train step on a mesh (port of ``src/repro/launch/train.py``).
 
 FedCET (Algorithm 2) on a real model: every client holds a replica and a
 heterogeneous token stream, takes ``tau - 1`` local steps and one
@@ -28,10 +28,25 @@ is saved every 50 rounds (``checkpoint/ckpt.py``, the reference's
 ``.npz`` layout; like the reference, the run saves and does not resume:
 ``fed/trainer.py:FedTrainer.maybe_resume`` resumes). Random draws take
 float32 / int32, the reference's dtypes on this entry point (it runs with
-``jax_enable_x64`` off). The mesh launcher (``make_plan``,
-``lower_train_step``) comes with slice 14, the training lowering, on the
-meshes and partition rules of ``launch/{mesh,partition}.py``; the dry run
-(``launch/dryrun.py``) records train shapes as skipped until then.
+``jax_enable_x64`` off).
+
+The production train step (``make_plan``, ``state_shardings``,
+``abstract_state``, ``build_round_fn``, ``lower_train_step``) is the
+FedCET round over a ``DeviceMesh`` (``launch/{mesh,partition}.py``):
+
+  * clients laid out along the ("pod", "data") mesh axes (one model
+    replica and one heterogeneous data shard per client), the algorithm's
+    ``spmd_client_axes``: each rank computes its own clients' gradients;
+  * each replica tensor-parallel over "model" (the partition rules), with
+    an "fsdp" split of the data axis for the archs of
+    ``launch/overrides.py``;
+  * sequence-sharded residual activations (``utils/sharding_ctx.py``);
+  * the FedCET kernels on the local shards (``kernels/ops.py``), and the
+    client mean the one reduction across the client axes, once per tau
+    gradient steps.
+
+``LoweredTrain.trace()`` runs one round on fake local shards (the dry
+run, ``launch/dryrun.py``); ``.run()`` runs it on real DTensors.
 
 Run as a script:
     python -m repro_torch.launch.train --arch fedlm-100m --full --steps 5 \
@@ -54,20 +69,30 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Any, Callable
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.ckpt import save
 from repro_torch.configs import get_config
-from repro_torch.configs.base import FedScenario
+from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, FedScenario
 from repro_torch.core import telemetry as tele
+from repro_torch.core.api import spmd_grad
 from repro_torch.core.comm import CommMeter, comm_bits_per_round, leaf_info_of
 from repro_torch.core.compressors import AdaptivePlan, CompressionPlan
-from repro_torch.core.engine import make_round_runner, scan_segments
-from repro_torch.core.fedcet import FedCET
+from repro_torch.core.engine import (EngineState, make_round_runner,
+                                     scan_segments)
+from repro_torch.core.fedcet import FedCET, FedCETState
+from repro_torch.core.staleness import DelayState
+from repro_torch.core.topology import TopoState
 from repro_torch.data.synthetic import make_hetero_lm_dataset
+from repro_torch.launch import input_specs as ispec
+from repro_torch.launch import partition
+from repro_torch.launch.mesh import axis_size, client_axes, n_clients, tp_size
 from repro_torch.models import build_model
+from repro_torch.roofline.comm_count import CollectiveCounter
+from repro_torch.utils.sharding_ctx import activation_sharding, resolve_partial
 from repro_torch.utils.tree import tree_map
 
 #: the reference's scenario options and their defaults.
@@ -307,6 +332,229 @@ def mean_client_loss(client_losses, params, batches) -> torch.Tensor:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# ---------------------------------------------------- production train step
+@dataclasses.dataclass(frozen=True)
+class TrainPlan:
+    cfg: ArchConfig
+    algo: Any  # FedCET, possibly wrapped by scenario transforms
+    mesh: Any
+    n_clients: int
+    per_client_batch: int
+    seq_len: int
+
+    @property
+    def client_axes(self) -> tuple[str, ...]:
+        return client_axes(self.mesh)
+
+
+def make_plan(arch: str, mesh, *, shape_name: str = "train_4k",
+              tau: int = 2, alpha: float = 1e-3, c: float = 0.05,
+              dtype: str = "bfloat16",
+              scenario: FedScenario | None = None) -> TrainPlan:
+    """The production round of ``arch`` at ``shape_name`` on ``mesh``
+    (its fsdp view, ``overrides.train_mesh_view``): one client per
+    client-axes coordinate, ``global_batch / n_clients`` sequences each.
+    The draws take float32 / int32 (``x64`` off), as the reference's LM
+    runs (``jax_enable_x64`` off)."""
+    from repro_torch.launch.overrides import distribution_for, train_mesh_view
+
+    cfg = get_config(arch).with_dtype(dtype)
+    shp = INPUT_SHAPES[shape_name]
+    mesh = train_mesh_view(mesh, distribution_for(arch).fsdp)
+    nc = n_clients(mesh)
+    if shp.global_batch % nc:
+        raise ValueError(f"make_plan: {nc} clients do not divide the global "
+                         f"batch {shp.global_batch} of {shape_name}")
+    algo = FedCET(alpha=alpha, c=c, tau=tau, n_clients=nc, x64=False,
+                  spmd_client_axes=client_axes(mesh))
+    if scenario is not None:
+        algo = scenario.apply(algo)
+    return TrainPlan(cfg=cfg, algo=algo, mesh=mesh, n_clients=nc,
+                     per_client_batch=shp.global_batch // nc,
+                     seq_len=shp.seq_len)
+
+
+def _fsdp(plan: TrainPlan) -> str | None:
+    return "fsdp" if "fsdp" in plan.mesh.mesh_dim_names else None
+
+
+def state_shardings(plan: TrainPlan, state_shapes):
+    """Specs for the algorithm state, entry for entry the reference's: x
+    and d are stacked-client parameter trees; transform extras (shift or
+    error-feedback memory) and the delay buffer are message-shaped, the
+    same stacked layout as x, and shard identically (the buffer's
+    ``[clients] int32`` age shards over the client axes); a stateful
+    topology's tensors (the tier memory) are replicated. The step counter
+    ``t`` and a ``TopoState``'s round index ``k`` are host ints: they have
+    no spec and pass through the spec tree as they are."""
+    mesh, tp, ca = plan.mesh, tp_size(plan.mesh), plan.client_axes
+
+    def tree_sh(tree):
+        return partition.tree_shardings(tree, mesh, tp, ca,
+                                        extra_axis=_fsdp(plan))
+
+    wrapped = isinstance(state_shapes, EngineState)
+    inner = state_shapes.inner if wrapped else state_shapes
+    inner_sh = FedCETState(x=tree_sh(inner.x), d=tree_sh(inner.d), t=inner.t)
+    if not wrapped:
+        return inner_sh
+
+    def extra_sh(e):
+        if e is None:
+            return None
+        if isinstance(e, TopoState):
+            return partition.replicated_shardings(e)
+        return tree_sh(e)
+
+    return EngineState(inner=inner_sh,
+                       extras=tuple(extra_sh(e) for e in state_shapes.extras))
+
+
+def abstract_state(plan: TrainPlan):
+    """The algorithm state on the ``meta`` device (nothing allocated):
+    ``FedCETState`` (``t`` 0, the counter after ``init``), wrapped in
+    ``EngineState`` when the plan's scenario attaches message transforms
+    (extras from each transform's ``init_extra`` on the x-shaped message),
+    a STATEFUL topology (its ``TopoState``, tier memory included, just
+    before the delay slot) and/or a delay model (the last slot: the
+    server buffer, an x-shaped tree, and the ``[clients] int32`` age)."""
+    model = build_model(plan.cfg)
+    params = model.init(torch.Generator(), device="meta")
+
+    def stack(tree):
+        return tree_map(lambda a: torch.empty(
+            (plan.n_clients,) + tuple(a.shape), dtype=a.dtype,
+            device="meta"), tree)
+
+    inner = FedCETState(x=stack(params), d=stack(params), t=0)
+    algo = plan.algo
+    topo = getattr(algo, "topology", None)
+    topo_stateful = topo is not None and topo.stateful
+    delay = getattr(algo, "delay", None)
+    transforms = getattr(algo, "transforms", ())
+    if not transforms and delay is None and not topo_stateful:
+        return inner
+    extras = tuple(t.init_extra(inner.x) for t in transforms)
+    if topo_stateful:
+        extras += (topo.init_state(inner.x),)
+    if delay is not None:
+        extras += (DelayState(buf=stack(params), age=torch.empty(
+            (plan.n_clients,), dtype=torch.int32, device="meta")),)
+    return EngineState(inner=inner, extras=extras)
+
+
+def build_round_fn(plan: TrainPlan) -> Callable:
+    """The production train step: one FedCET round of ``plan.algo``, the
+    gradients by ``core/api.py:spmd_grad`` (``torch.func.grad`` on plain
+    tensors, autograd on DTensors)."""
+    model = build_model(plan.cfg)
+    grad_fn = spmd_grad(model.loss)
+    algo = plan.algo
+
+    def train_round(state, batches):
+        return algo.round(grad_fn, state, batches)
+
+    return train_round
+
+
+@dataclasses.dataclass
+class LoweredTrain:
+    """The train step over a mesh: ``build_round_fn(plan)``, the ``meta``
+    trees of its arguments (state, ``[tau, clients, ...]`` batches), their
+    specs and the activation layouts it runs under."""
+
+    plan: TrainPlan
+    fn: Callable
+    abstract: tuple           # (state, batches) on meta
+    specs: tuple              # their spec trees
+    residual: tuple
+    logits: tuple
+    moe: dict | None
+    donate: bool
+
+    def _step(self, state, batches):
+        # the model's and the engine's own constants (positions, masks,
+        # weights) are plain tensors: they enter as replicated
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with activation_sharding(residual=self.residual, logits=self.logits,
+                                 moe_shards=self.moe), torch.no_grad(), \
+                implicit_replication():
+            return tree_map(resolve_partial, self.fn(state, batches))
+
+    def trace(self) -> dict:
+        """One round on fake local shards (a fake process group, no
+        device), donation-free: ``memory`` as argument, temp (the peak of
+        live storages) and output bytes per device, and ``collectives``,
+        the counter's summary."""
+        from repro_torch.launch.serve import trace_on_fake_shards
+
+        return trace_on_fake_shards(self._step, self.abstract, self.specs,
+                                    self.plan.mesh)
+
+    def run(self, state, batches):
+        """One round for real: the state and batches (tensors, or DTensors
+        such as a previous round's state) are distributed with the specs'
+        placements, and the new state comes back as DTensors with the
+        counter's summary: ``(new_state, collectives)``. With ``donate``
+        the new state is written into the argument's local shards and the
+        argument's tensors are returned, so the caller holds one client
+        store."""
+        mesh = self.plan.mesh
+        args = tuple(partition.distribute(t, s, mesh)
+                     for t, s in zip((state, batches), self.specs))
+        with CollectiveCounter() as cc:
+            new = self._step(*args)
+        if self.donate:
+            new = tree_map(_write_into, args[0], new)
+        return new, cc.collective_summary()
+
+
+def _write_into(old, new):
+    """``new``'s value in ``old``'s storage (tensor leaves), else
+    ``new``."""
+    if not isinstance(old, torch.Tensor):
+        return new
+    if new is not old:
+        new = new.redistribute(old.device_mesh, old.placements)
+        old.to_local().copy_(new.to_local())
+    return old
+
+
+def lower_train_step(plan: TrainPlan, *, donate: bool = True) -> LoweredTrain:
+    """The FedCET round on the production mesh, ready to trace or run.
+
+    ``donate`` makes ``.run`` update the argument's client store in place
+    ((x, d), transform extras, delay buffers), the reference's aliased
+    state. ``.trace()`` is donation-free, as the reference's dry run
+    lowers with ``donate=False``."""
+    mesh = plan.mesh
+    state_shapes = abstract_state(plan)
+    batch_shapes = ispec.fed_batch_specs(
+        plan.cfg, plan.algo.tau, plan.n_clients, plan.per_client_batch,
+        plan.seq_len)
+    fs = _fsdp(plan)
+    st_sh = state_shardings(plan, state_shapes)
+    b_sh = partition.batch_shardings(batch_shapes, mesh,
+                                     dim_axes=(None, plan.client_axes, fs))
+    tp = tp_size(mesh)
+    # token-sharded MoE dispatch when experts don't divide the model axis;
+    # per-client tokens are seq-sharded over `model` (and batch over fsdp
+    # when present).
+    moe = None
+    if plan.cfg.n_experts and plan.cfg.n_experts % tp:
+        nb = axis_size(mesh, fs) if fs else 1
+        axes = (fs, "model") if fs else ("model",)
+        moe = {"nb": nb, "ns": tp, "axes": axes,
+               "spec": (axes if len(axes) > 1 else axes[0], None, None)}
+    # per-client activations [B, S, d]: batch over fsdp (when present),
+    # sequence over model, d replicated.
+    return LoweredTrain(plan=plan, fn=build_round_fn(plan),
+                        abstract=(state_shapes, batch_shapes),
+                        specs=(st_sh, b_sh), residual=(fs, "model", None),
+                        logits=(fs, None, "model"), moe=moe, donate=donate)
 
 
 def main(argv=None):

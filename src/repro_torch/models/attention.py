@@ -34,8 +34,8 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 from repro_torch.utils.sharding_ctx import (batch_local, gather_dims,
-                                            is_dtensor, local_layout,
-                                            split_dim)
+                                            grad_in_layout, is_dtensor,
+                                            local_layout, split_dim)
 
 NEG_INF = -1e30
 
@@ -85,8 +85,8 @@ def _qk_norm(params, q, k):
 
 
 def _out(params, o, B, S):
-    out = o.reshape(B, S, -1) @ params["wo"]
-    return out + params["bo"] if "bo" in params else out
+    out = grad_in_layout(o.reshape(B, S, -1)) @ params["wo"]
+    return grad_in_layout(out + params["bo"] if "bo" in params else out)
 
 
 def _mask_kind(kind: str) -> str:
@@ -116,14 +116,16 @@ def attend_naive(q, k, v, allowed):
     float32 over sqrt(D), masked with -1e30, probabilities cast back to
     q's dtype — the reference's numerics."""
     S, D, T = q.shape[1], q.shape[3], k.shape[1]
-    scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32)
+    scores = grad_in_layout(torch.einsum("bshd,bthd->bhst", q,
+                                         k)).to(torch.float32)
     scores = scores / math.sqrt(D)
     qp = torch.arange(S, device=q.device)
     kp = torch.arange(T, device=q.device)
     mask = allowed(qp[:, None], kp[None, :])  # [S, T]
     scores = scores.masked_fill(~mask[None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhst,bthd->bshd", probs.to(q.dtype), v)
+    return grad_in_layout(torch.einsum("bhst,bthd->bshd", probs.to(q.dtype),
+                                       v))
 
 
 # ------------------------------------------------------ blockwise (flash)
@@ -138,18 +140,25 @@ def attend_blockwise(q, k, v, allowed, *, block_size: int = 512):
     G = Hq // Hkv
     nblk = -(-T // block_size)
     pad = nblk * block_size - T
-    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    # DTensor has no sharding rule for pad in torch 2.11: on DTensors the
+    # last block is cut to the keys there are instead (a padded key adds
+    # exactly 0 to a row that allows any key of its block)
+    cut = is_dtensor(k)
+    if pad and not cut:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     qg = q.reshape(B, S, Hkv, G, D).to(torch.float32)
     qpos = torch.arange(S, device=q.device)
-    acc = torch.zeros((B, S, Hkv, G, D), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((B, S, Hkv, G), NEG_INF, dtype=torch.float32,
-                   device=q.device)
+    # the running sums take q's layout (a DTensor's shards, not a whole
+    # replicated tensor)
+    acc = torch.zeros_like(qg)
+    m = torch.full_like(qg[..., 0], NEG_INF)
     denom = torch.zeros_like(m)
     for i in range(nblk):
-        sl = slice(i * block_size, (i + 1) * block_size)
-        kpos = i * block_size + torch.arange(block_size, device=q.device)
+        lo = i * block_size
+        hi = min(lo + block_size, T) if cut else lo + block_size
+        sl = slice(lo, hi)
+        kpos = lo + torch.arange(hi - lo, device=q.device)
         scores = torch.einsum("bshgd,bthd->bshgt", qg,
                               k[:, sl].to(torch.float32)) / math.sqrt(D)
         ok = allowed(qpos[:, None], kpos[None, :]) & (kpos < T)[None, :]
@@ -200,6 +209,8 @@ def attention(params, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
     if use_pallas and not force_naive:
         return _out(params, _flash(q, k, v, kind, window, chunk), B, S)
     allowed = mask_fn(_mask_kind(kind), window=window, chunk=chunk)
+    # on DTensors each rank attends over its own batch rows or KV heads
+    q, k, v = local_layout((q, k, v), (2, 2, 2), n_kv_heads)
     if force_naive or S <= 1024:
         groups = n_heads // n_kv_heads
         if groups > 1:  # repeat KV heads up to the query-head count

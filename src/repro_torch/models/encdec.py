@@ -40,7 +40,8 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 from repro_torch.models.losses import chunked_ce
-from repro_torch.utils.sharding_ctx import (batch_local, shard_residual,
+from repro_torch.utils.sharding_ctx import (batch_local, grad_in_layout,
+                                            local_layout, shard_residual,
                                             split_dim)
 from repro_torch.utils.tree import tree_index
 
@@ -55,8 +56,10 @@ def _cross_kv(p, memory, n_heads, head_dim):
 def _cross_attend(p, x, k, v, n_heads, head_dim):
     B, S, _ = x.shape
     q = split_dim(batch_local(x) @ p["wq"] + p["bq"], n_heads, head_dim)
+    q, k, v = local_layout((q, k, v), (2, 2, 2), n_heads)
     out = attn.attend_naive(q, k, v, attn.mask_fn("bidirectional"))
-    return out.reshape(B, S, n_heads * head_dim) @ p["wo"] + p["bo"]
+    return grad_in_layout(out.reshape(B, S, n_heads * head_dim) @ p["wo"]
+                          + p["bo"])
 
 
 def init_enc_block(gen, cfg: ArchConfig, *, lead: tuple = (), device=None):

@@ -11,7 +11,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.utils.sharding_ctx import batch_local, resolve_partial
+from repro_torch.utils.sharding_ctx import (batch_local, grad_in_layout,
+                                            resolve_partial)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
@@ -151,11 +152,11 @@ def apply_mlp(x: torch.Tensor, params: dict, *,
     if activation in ("swiglu", "geglu"):
         act = F.silu if activation == "swiglu" else gelu_tanh
         h = act(x @ params["gate"]) * (x @ params["up"])
-        return h @ params["down"]
+        return grad_in_layout(h @ params["down"])
     h = x @ params["up"]
     if "up_b" in params:
         h = h + params["up_b"]
     out = gelu_tanh(h) @ params["down"]
     if "down_b" in params:
         out = out + params["down_b"]
-    return out
+    return grad_in_layout(out)

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.utils.sharding_ctx import shard_logits
+from repro_torch.utils.sharding_ctx import (is_dtensor, resolve_partial,
+                                            shard_logits)
 
 CE_CHUNK = 512
 
@@ -36,8 +37,20 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, tokens: torch.Tensor, *,
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for s in range(0, n, c):
         logits = shard_logits((preds[:, s:s + c] @ head).to(torch.float32))
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            targets[:, s:s + c, None].to(torch.int64))[..., 0]
+        logz = _logsumexp(logits)
+        gold = resolve_partial(torch.gather(
+            logits, -1, targets[:, s:s + c, None].to(torch.int64)))[..., 0]
         total = total + torch.sum(logz - gold)
     return total / (B * n)
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last (vocab) dim. DTensor has no sharded
+    rule for it and would gather a vocab-sharded chunk whole, so on a
+    DTensor the max and the sum of exponentials reduce across the shards
+    (two ``[B, chunk]`` all-reduces) instead."""
+    if not is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = resolve_partial(torch.amax(logits, dim=-1, keepdim=True)).detach()
+    total = resolve_partial(torch.sum(torch.exp(logits - m), dim=-1))
+    return torch.log(total) + m[..., 0]

@@ -36,7 +36,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense_init, rms_norm, torch_dtype
 from repro_torch.utils.sharding_ctx import (batch_local, dense_shards,
-                                            gather_dims, local_layout,
+                                            gather_dims, grad_in_layout,
+                                            is_dtensor, local_layout,
                                             shard_residual, split_dim)
 
 DEFAULT_CHUNK = 128
@@ -133,6 +134,31 @@ def ssd_naive(x, dt, A, Bm, Cm, *, h0=None):
     return torch.stack(ys, dim=1).to(x.dtype), h
 
 
+class _ChunkCumsum(torch.autograd.Function):
+    """The inclusive cumsum over dim 2 whose backward, the reverse cumsum,
+    is a product with a triangular matrix: DTensor has no sharding rule
+    for ``flip`` (autograd's reverse cumsum) in torch 2.11."""
+
+    @staticmethod
+    def forward(ctx, a):
+        return torch.cumsum(a, dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[2]
+        upper = torch.ones((n, n), dtype=g.dtype,
+                           device=g.device).tril()      # [i, j]: i >= j
+        return torch.einsum("bcih,ij->bcjh", g, upper)
+
+
+def _chunk_cumsum(a):
+    """``torch.cumsum(a, dim=2)`` (``a`` ``[B, Nc, Lc, H]``), on a DTensor
+    that needs a gradient through :class:`_ChunkCumsum`."""
+    if is_dtensor(a) and a.requires_grad:
+        return _ChunkCumsum.apply(a)
+    return torch.cumsum(a, dim=2)
+
+
 def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = DEFAULT_CHUNK, h0=None,
                 use_kernel: bool = False):
     """Chunked dual form. Same signature/returns as ssd_naive.
@@ -159,7 +185,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = DEFAULT_CHUNK, h0=None,
     Cf = Cm.reshape(Bsz, Nc, Lc, N).to(f32).contiguous()
 
     a = dtf * A.to(f32)                 # log-decay increments
-    a_cs = torch.cumsum(a, dim=2)       # inclusive cumsum within chunk
+    a_cs = _chunk_cumsum(a)             # inclusive cumsum within chunk
 
     # y_intra[i] = sum_{j<=i} (C_i . B_j) exp(a_cs[i] - a_cs[j]) dt[j] x[j]
     y_intra = kops.ssd_intra(
@@ -225,7 +251,7 @@ def _ssd_operands(p, h, xBC, dims):
     d_inner, H, P, N = dims
     x, Bm, Cm = torch.split(xBC, [d_inner, N, N], dim=-1)
     x = split_dim(x, H, P)
-    dt = softplus((h @ p["wdt"]) + p["dt_bias"])
+    dt = softplus((batch_local(h) @ p["wdt"]) + p["dt_bias"])
     A = -torch.exp(p["A_log"].to(torch.float32))
     return x, dt, A, Bm, Cm
 
@@ -234,7 +260,7 @@ def _out(p, u, y, x, z, d_inner):
     y = dense_shards(y + p["D"][None, None, :, None] * x)
     y = y.reshape(*y.shape[:2], d_inner)
     y = rms_norm(y * F.silu(z), p["out_norm"])
-    return u + y @ p["out_proj"]
+    return u + grad_in_layout(y @ p["out_proj"])
 
 
 def apply_mamba_block(p, u, cfg: ArchConfig, *, naive: bool = False):

@@ -46,8 +46,9 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import apply_mlp, dense_init, gelu_tanh, \
     init_mlp
-from repro_torch.utils.sharding_ctx import (is_dtensor, moe_shards,
-                                            redistribute, replicate)
+from repro_torch.utils.sharding_ctx import (grad_in_layout, is_dtensor,
+                                            moe_shards, redistribute,
+                                            replicate)
 
 
 def init_moe(gen: torch.Generator, d: int, d_ff: int, n_experts: int, dtype,
@@ -121,7 +122,9 @@ def _moe_tokens(params: dict, xt: torch.Tensor, *, n_experts: int, k: int,
     ``(out [T, d], aux)``."""
     T, d = xt.shape
     cap = capacity(T, k, n_experts, capacity_factor)
-    logits = xt @ params["router"]                            # [T, E]
+    # a replicated router (fsdp may shard it) keeps the routing's indices
+    # replicated on a DTensor token stream
+    logits = xt @ replicate(params["router"])                 # [T, E]
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     r = route(probs, k, n_experts, cap)
     st = r.order // k                                         # token ids
@@ -131,7 +134,10 @@ def _moe_tokens(params: dict, xt: torch.Tensor, *, n_experts: int, k: int,
     c = torch.arange(cap, device=xt.device)
     src = torch.clamp_max(r.starts[:, None] + c[None, :], T * k - 1)
     filled = c[None, :] < r.counts[:, None]
-    buf = torch.where(filled[..., None], xt[st[src]],
+    # the gathers' gradients come back in their forward layouts: DTensor's
+    # index_put (their backward) in torch 2.11 fails on the layouts the
+    # expert-sharded products hand back
+    buf = torch.where(filled[..., None], grad_in_layout(xt[st[src]]),
                       torch.zeros((), dtype=xt.dtype, device=xt.device))
 
     if "gate" in params:
@@ -144,8 +150,9 @@ def _moe_tokens(params: dict, xt: torch.Tensor, *, n_experts: int, k: int,
 
     sw = r.topw.reshape(-1)[r.order]
     w_keep = torch.where(r.keep, sw, 0.0).to(xt.dtype)
-    out_slots = y[r.se, r.slot] * w_keep[:, None]             # sorted order
-    out = out_slots[torch.argsort(r.order)].reshape(T, k, d).sum(1)
+    out_slots = grad_in_layout(y[r.se, r.slot]) * w_keep[:, None]  # sorted
+    out = grad_in_layout(out_slots[torch.argsort(r.order)]).reshape(
+        T, k, d).sum(1)
 
     frac = _histogram(r.tope[:, 0], n_experts).to(torch.float32) / T
     aux = n_experts * torch.sum(frac * torch.mean(probs, dim=0))
@@ -208,9 +215,9 @@ def apply_moe(params: dict, x: torch.Tensor, *, n_experts: int, k: int,
             if shared_expert and "shared" in params:
                 out = out + apply_mlp(x, params["shared"],
                                       activation=activation)
-            return out, aux
+            return grad_in_layout(out), aux
     xt = replicate(x).reshape(B * S, d)
     out, aux = _moe_tokens(params, xt, **kw)
     if shared_expert and "shared" in params:
         out = out + apply_mlp(xt, params["shared"], activation=activation)
-    return out.reshape(B, S, d), aux
+    return grad_in_layout(out.reshape(B, S, d)), aux

@@ -65,11 +65,24 @@ def is_dtensor(x) -> bool:
 
 def redistribute(x, spec):
     """``x`` redistributed to ``spec``'s placements when it is a DTensor;
-    a plain tensor comes back as it is."""
+    a plain tensor comes back as it is. A tensor dim that the spec's mesh
+    dims do not divide stays whole there (whisper's 1500 frames over 16):
+    DTensor would pad its shards, and torch 2.11 cannot view the unpadded
+    ones."""
     if not is_dtensor(x):
         return x
-    return x.redistribute(x.device_mesh,
-                          spec_placements(spec, x.device_mesh))
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    want = list(spec_placements(spec, mesh))
+    for i in range(x.ndim):
+        n = 1
+        for m, p in enumerate(want):
+            if p.is_shard(i):
+                n *= mesh.size(m)
+        if x.shape[i] % n:
+            want = [Replicate() if p.is_shard(i) else p for p in want]
+    return x.redistribute(mesh, want)
 
 
 def _moves_free_first(x, want):
@@ -121,6 +134,39 @@ def dense_shards(x):
         x = DTensor.from_local(x.to_local().contiguous(), x.device_mesh,
                                x.placements, run_check=False, shape=x.shape,
                                stride=x.stride())
+    return x
+
+
+class _GradInLayout(torch.autograd.Function):
+    """The identity, whose backward brings the gradient to the forward
+    value's placements (replicated where the value was a pending sum)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+
+        ctx.mesh = x.device_mesh
+        ctx.placements = [Replicate() if p.is_partial() else p
+                          for p in x.placements]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_in_layout(x):
+    """``x``, and in the backward pass its gradient redistributed to
+    ``x``'s placements (a pending sum's gradient replicated) before it
+    reaches the op that made ``x``. An op that redistributes an input
+    inside its own dispatch (a residual add meeting a sequence-sharded
+    stream) hands the gradient back in its own layout, on which the
+    backward of a reshape legal in the forward may be refused (torch 2.11
+    flattens no sharded inner dim; an unflatten of heads the mesh dim
+    does not divide). Anything but a DTensor that needs a gradient comes
+    back as it is."""
+    if is_dtensor(x) and x.requires_grad:
+        return _GradInLayout.apply(x)
     return x
 
 

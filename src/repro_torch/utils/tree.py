@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.utils.sharding_ctx import resolve_partial
+
 
 def tree_leaves(tree) -> list:
     return pytree.tree_flatten(tree)[0]
@@ -41,8 +43,11 @@ def tree_client_mean(a, *, keepdims: bool = True):
     """Mean over the leading clients axis of every leaf.
 
     With ``keepdims=True`` the result keeps the ``[1, ...]`` axis, so it
-    broadcasts back against the stacked tree (the server broadcast)."""
-    return tree_map(lambda x: torch.mean(x, dim=0, keepdim=keepdims), a)
+    broadcasts back against the stacked tree (the server broadcast). On a
+    DTensor sharded over the clients the mean is reduced across those mesh
+    axes: a value, not a pending sum."""
+    return tree_map(
+        lambda x: resolve_partial(torch.mean(x, dim=0, keepdim=keepdims)), a)
 
 
 def tree_num_params(a) -> int:

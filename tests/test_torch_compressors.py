@@ -110,6 +110,81 @@ def test_apply_arena_matches_jax_and_the_per_leaf_path(spec):
         assert torch.equal(a, b)
 
 
+def _nested_msg(seed):
+    """A stacked [4, ...] message with nested dicts and a list, keys
+    sorted (JAX's flatten order)."""
+    rng = np.random.default_rng(seed)
+    return {"b": rng.standard_normal((4, 7)),
+            "layers": [{"down": rng.standard_normal((4, 5, 3)),
+                        "up": rng.standard_normal((4, 3, 5))}
+                       for _ in range(2)],
+            "w": rng.standard_normal((4, 9))}
+
+
+def _unsorted(tree):
+    """``tree`` as tensors, every dict built in reverse-sorted key order
+    (the port's models build dicts in an order of their own)."""
+    if isinstance(tree, dict):
+        return {k: _unsorted(tree[k]) for k in sorted(tree, reverse=True)}
+    if isinstance(tree, list):
+        return [_unsorted(v) for v in tree]
+    return torch.tensor(tree)
+
+
+def _close_by_name(got, want):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _close_by_name(got[k], want[k])
+    elif isinstance(want, list):
+        for g, w in zip(got, want, strict=True):
+            _close_by_name(g, w)
+    else:
+        assert float(np.abs(got.numpy() - np.asarray(want)).max()) <= TOL
+
+
+@pytest.mark.parametrize("spec", ["q8", "pq8", "shift:q8", "plan",
+                                  "arena"])
+def test_dithers_follow_the_reference_leaf_order(spec):
+    """A message whose dicts are not in sorted key order draws the
+    reference's dither on every leaf: the per-leaf subkeys fold in the
+    leaf's index in JAX's flatten order (``reference_leaf_index``), in
+    the per-leaf path, a plan and the arena's packed dither alike."""
+    jax = _jax()
+    from repro.core.arena import ArenaLayout as JLayout
+    from repro.core.arena import pack as jpack
+    from repro.core.arena import unpack as junpack
+    from repro.core.compressors import from_spec as jfrom
+    from repro.core.compressors import parse_plan as jplan
+
+    from repro_torch.core.arena import ArenaLayout
+
+    key_j = jax.random.fold_in(jax.random.key(5), 17)
+    key_t = prng.fold_in(prng.key(5), 17)
+    tree = _nested_msg(6)
+    h = _nested_msg(7) if spec in ("shift:q8", "plan") else None
+    if spec == "plan":
+        comp, jcomp = C.parse_plan("*:shift:q8"), jplan("*:shift:q8")
+    else:
+        comp = C.from_spec("q8" if spec == "arena" else spec)
+        jcomp = jfrom("q8" if spec == "arena" else spec)
+    msg, jmsg = _unsorted(tree), tree
+    if spec == "arena":
+        model = jax.tree.map(lambda a: a[0], tree)
+        msg = pack(msg, ArenaLayout.for_tree(_unsorted(model)))
+        jmsg = jpack(tree, JLayout.for_tree(model))
+    got, got_h = comp.apply(key_t, msg, None if h is None else _unsorted(h))
+    want, want_h = jcomp.apply(key_j, jmsg, h)
+    if spec == "arena":
+        got, want = unpack(got), junpack(want)
+    assert list(got) == sorted(tree, reverse=True)  # the port's own order
+    _close_by_name(got, want)
+    if h is not None:
+        _close_by_name(got_h, want_h)
+    assert C.reference_leaf_index(msg if spec != "arena" else got) \
+        == [5, 2, 1, 4, 3, 0]
+
+
 def test_kernel_switch_agrees_on_the_cpu():
     key = prng.key(1)
     leaf = torch.tensor(_msg(4)["big"])

@@ -10,8 +10,11 @@ meets this test session.
   full width: status ok, argument bytes the sum of the local shards, and
   its ``roofline`` equal to ``analyze_lowered(cost_for(...))`` of the
   record's memory and collectives.
-* A train shape is recorded as skipped with the stated reason; a
-  ``merge_results`` round trip.
+* A shape the coverage policy refuses is recorded as skipped with the
+  policy's reason; ``run_one`` on a reduced qwen3 train cell (64 tokens x
+  16 clients) on a fake 16 x 16 world ends ok, its argument bytes the
+  local shards' from the specs' arithmetic, its ``roofline`` equal to
+  ``analyze_lowered(cost_for(...))``; a ``merge_results`` round trip.
 * On the ``cpu`` fake mesh DTensor issues an all-to-all as an all-gather
   and a chunk, and the counter reports what it saw: an all-gather.
 * The sharded steps run for real on a one-rank ``gloo`` group and a 1 x 1
@@ -105,15 +108,62 @@ def test_run_one_mamba2_long_500k_on_16x16():
     assert "RUN_ONE_OK" in _run(RUN_ONE)
 
 
-def test_train_shape_is_skipped_with_its_reason(capsys):
-    rec = dryrun.run_one("qwen3-1.7b", "train_4k", multi_pod=False)
-    assert rec["status"] == "skipped" and rec["reason"] == dryrun.TRAIN_SKIP
-    assert "slice" in rec["reason"]
-    assert "SKIP qwen3-1.7b x train_4k" in capsys.readouterr().out
-    # a shape the policy refuses keeps the policy's reason
-    rec = dryrun.run_one("internlm2-20b", "long_500k", multi_pod=True,
-                         verbose=False)
+def test_policy_skip_keeps_its_reason(capsys):
+    rec = dryrun.run_one("internlm2-20b", "long_500k", multi_pod=True)
     assert rec["status"] == "skipped" and "sub-quadratic" in rec["reason"]
+    assert "SKIP internlm2-20b x long_500k" in capsys.readouterr().out
+
+
+TRAIN_CELL = r"""
+import dataclasses, json
+import repro_torch.configs as C
+from repro_torch.configs import INPUT_SHAPES, get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun, partition, train
+from repro_torch.launch.mesh import (axis_size, fake_world,
+                                     make_production_mesh)
+from repro_torch.roofline.analysis import analyze_lowered
+from repro_torch.roofline.flops import cost_for
+
+# qwen3 reduced, train_4k as 64 tokens x 16 clients of one sequence
+C._REGISTRY["qwen3-1.7b"] = dataclasses.replace(
+    get_config("qwen3-1.7b").reduced(), name="qwen3-1.7b")
+INPUT_SHAPES["train_4k"] = ShapeConfig("train_4k", 64, 16, "train")
+with fake_world(256):
+    rec = dryrun.run_one("qwen3-1.7b", "train_4k", multi_pod=False,
+                         verbose=False)
+    low = train.lower_train_step(
+        train.make_plan("qwen3-1.7b", make_production_mesh()), donate=False)
+    want = 0
+    for tree, specs in zip(low.abstract, low.specs):
+        for (_, leaf), spec in zip(partition._leaves(tree)[0],
+                                   partition.spec_leaves(specs)):
+            if spec is None:
+                continue
+            n = leaf.numel()
+            for ax in spec:
+                for a in (ax if isinstance(ax, tuple) else (ax,) if ax else ()):
+                    n //= axis_size(low.plan.mesh, a)
+            want += n * leaf.element_size()
+assert rec["status"] == "ok", rec
+assert rec["memory"]["argument_bytes"] == want, (rec["memory"], want)
+assert rec["memory"]["temp_bytes"] > 0, rec["memory"]
+cfg = get_config("qwen3-1.7b").with_dtype("bfloat16")
+r = analyze_lowered(arch="qwen3-1.7b", shape="train_4k", mesh_name="16x16",
+                    n_devices=256,
+                    cost=cost_for(cfg, INPUT_SHAPES["train_4k"],
+                                  n_devices=256),
+                    collectives=rec["roofline"]["collective_detail"],
+                    memory=rec["memory"], dtype="bfloat16")
+assert json.loads(json.dumps(r.as_dict())) == rec["roofline"]
+# the client mean is the one reduction across the clients
+assert rec["roofline"]["collective_detail"]["bytes_by_kind"]
+print("TRAIN_CELL_OK", json.dumps(rec["memory"]))
+"""
+
+
+def test_run_one_reduced_train_cell_on_16x16():
+    assert "TRAIN_CELL_OK" in _run(TRAIN_CELL)
 
 
 def test_merge_results_round_trip(tmp_path):

@@ -158,8 +158,9 @@ def test_run_training_end_to_end_on_cpu(capsys):
 
 def test_entry_points_refuse_what_this_slice_does_not_run(capsys):
     """A delayed run finishes on the CPU and bills its uplink at the
-    ``fixed:2`` duty cycle (1/3); the multi-GPU client axes still raise,
-    and the default device refuses to fall back."""
+    ``fixed:2`` duty cycle (1/3); the mesh lowering's client axes build
+    (``tests/test_torch_train_lowering.py`` runs them), and the default
+    device refuses to fall back."""
     hist = run_training("fedlm-100m", steps=2, n_clients=2, batch=1,
                         seq_len=8, device="cpu", log_every=1,
                         delay="fixed:2", stale_policy="drop")
@@ -168,9 +169,9 @@ def test_entry_points_refuse_what_this_slice_does_not_run(capsys):
     assert all(np.isfinite(hist["loss"]))
     assert f"bits_up {2 * n * 32.0 / 3:.4g}" in out
     assert hist["comm_bytes"][0] == int(2 * n * 32 / 3 / 8) + 2 * n * 4
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FedCET(alpha=ALPHA, c=CW, tau=TAU, n_clients=C,
-               spmd_client_axes=("data",))
+    algo = FedCET(alpha=ALPHA, c=CW, tau=TAU, n_clients=C,
+                  spmd_client_axes=("data",))
+    assert algo.spmd_client_axes == ("data",)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_training("fedlm-100m", steps=1)
