@@ -140,7 +140,19 @@ of the JAX package. Phases, one JSON line each:
                full width: exactly fedcet_v 11 and fedcet_round_tail 6,
                no ssd_intra (the gradients take the plain SSD), and one
                ``use_pallas_ssd`` forward at the training shape within
-               2e-4 (rtol = atol) of the plain one. Per round: loss, time,
+               2e-4 (rtol = atol) of the plain one; the remat check (one
+               local step's ``vmap(grad)`` of 4 clients x 8 x 128 with the
+               rematerialized bodies of ``models/remat.py`` and without:
+               fedlm-100m, whose only recompute is the chunked cross
+               entropy, and mamba2-130m, ``remat=True``: the gradients bit
+               for bit, peak GB and ms of each); (MO, ZA, WH)
+               granite-moe-3b-a800m cut to 2 of 32 layers, zamba2-1.2b to 6
+               of 38 and whisper-small whole (4 clients x 2 sequences of
+               1500 frames + 64 tokens, rematerialized layer by layer as
+               its config asks) through the engine under B's scenario, 3
+               rounds each: exactly fedcet_v 7 and fedcet_round_tail 4, the
+               round-0 loss within 1e-5 of the CPU's, round 1 against a
+               rerun on the plain kernels. Per round: loss, time,
                the Lemma 2 residual and where the time goes (gradients,
                each kernel, the dither, the scale pass, pack/unpack, the
                topology's reduce, the loss, the telemetry and its sketch
@@ -241,7 +253,10 @@ of the JAX package. Phases, one JSON line each:
                subprocess that sees no card; each ends
                ok, its argument bytes equal the local shards' from the
                specs' arithmetic, and its memory, collectives by kind and
-               three roofline terms are printed.
+               three roofline terms are printed; the train cells' temp
+               (layer bodies rematerialized as the configs ask) is printed
+               beside, and must stay below, what it was without
+               activation checkpointing (165 and 1,058 GB a device).
 
 Then the kernels summary line, the ``nvidia-smi`` name/power-limit line and
 the final ``{"ok": true, ...}`` line. Any failed check raises: the script
@@ -1717,6 +1732,7 @@ def phase_train():
                               f"{d_gap} (relative)")
     _check_delay_bits(comm)
     _check_mamba_pallas_forward()
+    _check_remat()
     launches[COHORT_PATH] = _cohort_path()
     for name, spec in FAMILY_PATHS.items():
         launches[name] = _family_path(name, spec)
@@ -1744,6 +1760,82 @@ def _check_mamba_pallas_forward():
           **_pallas_ssd_forward(cfg, params, batch, full)})
     del model, params, full
     torch.cuda.empty_cache()
+
+
+#: the remat check's models: fedlm-100m (``remat=False``: only the chunked
+#: cross entropy is rematerialized, always, as in the reference; "off" is
+#: ``models/remat.py:checkpoint`` replaced by the identity, the parent's
+#: unwrapped loop) and mamba2-130m (``remat=True``: every stacked block).
+REMAT_ARCHS = ("fedlm-100m", "mamba2-130m")
+
+
+def _check_remat():
+    """One local step's ``vmap(grad)`` at a train path's shape (4 clients x
+    8 x 128, seed-0 weights, float32, TF32 off) with the rematerialized
+    bodies and without: the gradients bit for bit (the recompute runs the
+    same kernels on the same inputs), with the peak memory and time of
+    each and the time of one forward (the recompute's cost)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import input_specs
+    from repro_torch.models import build_model, remat
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    n = TRAIN["n_clients"]
+    for arch in REMAT_ARCHS:
+        base = get_config(arch)
+        params = build_model(base).init(
+            torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        stack = tree_map(lambda a: a.unsqueeze(0).expand(
+            (n,) + tuple(a.shape)).contiguous(), params)
+        del params
+        batch = tree_map(lambda *xs: torch.stack(xs), *[
+            input_specs.make_batch(base, TRAIN["batch"], TRAIN["seq_len"],
+                                   key=c, device="cuda") for c in range(n)])
+        out, grads = {}, {}
+        for on in (True, False):
+            model = build_model(dataclasses.replace(base, remat=on)
+                                if base.remat else base)
+            step = torch.func.vmap(torch.func.grad(model.loss))
+            forward = torch.func.vmap(model.loss)
+            real = remat.checkpoint
+            if not on and not base.remat:
+                remat.checkpoint = lambda body: body
+            try:
+                step(stack, batch)  # warm-up (and the allocator's cache)
+                torch.cuda.synchronize()
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                grads[on] = step(stack, batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                peak = torch.cuda.max_memory_allocated()
+                with torch.no_grad():
+                    forward(stack, batch)
+                torch.cuda.synchronize()
+                out[on] = {"ms": (t1 - t0) * 1e3,
+                           "forward_ms": (time.perf_counter() - t1) * 1e3,
+                           "peak_gb": peak / 1e9,
+                           "peak_over_held_gb": (peak - held) / 1e9}
+            finally:
+                remat.checkpoint = real
+        gaps = [float(torch.max(torch.abs(a - b)))
+                / max(float(torch.max(torch.abs(b))), 1e-30)
+                for a, b in zip(tree_leaves(grads[True]),
+                                tree_leaves(grads[False]))]
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(tree_leaves(grads[True]), tree_leaves(grads[False])))
+        emit({"phase": "train", "check": "remat", "arch": arch,
+              "cfg_remat": base.remat, "clients": n, "batch": TRAIN["batch"],
+              "seq_len": TRAIN["seq_len"], "remat_on": out[True],
+              "remat_off": out[False], "bitwise_equal": equal,
+              "max_relative_gap": max(gaps)})
+        check(equal, f"{arch}: gradients with remat differ from those "
+                     f"without (largest gap {max(gaps)} of a leaf's scale)")
+        del stack, batch, grads
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _check_delay_bits(comm):
@@ -2003,15 +2095,16 @@ def _cohort_path():
 #: arena: the triad and the fused round tail), depth cut only with
 #: ``dataclasses.replace(cfg, n_layers=...)`` (None: whole), driven through
 #: the engine as ``tests/test_arch_smoke.py::test_fedcet_round_on_arch``
-#: drives it. Per-client batch and sequence: WH's 4 clients x 2 x 1500
-#: frames would hold ~80 GB of encoder activations for the vmapped
-#: backward, so its batch is cut to 1 (never the width).
+#: drives it. Per-client batch and sequence as the reference's smoke: WH
+#: runs 4 clients x 2 x 1500 frames, which fits because whisper-small's
+#: ``remat`` rematerializes each encoder and decoder layer in the backward
+#: (without it the vmapped backward held ~80 GB of encoder activations).
 FAMILY_PATHS = {
     "MO_granite_moe_3b_a800m": dict(arch="granite-moe-3b-a800m",
                                     n_layers=2, batch=2, seq_len=128),
     "ZA_zamba2_1p2b": dict(arch="zamba2-1.2b", n_layers=6, batch=2,
                            seq_len=128),
-    "WH_whisper_small": dict(arch="whisper-small", n_layers=None, batch=1,
+    "WH_whisper_small": dict(arch="whisper-small", n_layers=None, batch=2,
                              seq_len=64),
 }
 FAMILY_RUN = dict(n_clients=4, tau=2, steps=3)
@@ -3298,6 +3391,10 @@ DRYRUN_CELLS = (("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
                 ("llama4-scout-17b-a16e", "decode_32k"),
                 ("qwen3-1.7b", "train_4k"),
                 ("llama4-scout-17b-a16e", "train_4k"))
+#: the train cells' temp a device without activation checkpointing (this
+#: script's dryrun phase on the card's host before ``models/remat.py``), GB
+DRYRUN_TEMP_BEFORE_REMAT_GB = {"qwen3-1.7b": 165.0,
+                               "llama4-scout-17b-a16e": 1058.0}
 DRYRUN_SCRIPT = r"""
 import json, sys
 from repro_torch.launch import dryrun, partition, serve, train
@@ -3361,7 +3458,10 @@ def phase_dryrun():
               "compute_s": rl.get("compute_s"), "memory_s": rl.get("memory_s"),
               "collective_s": rl.get("collective_s"),
               "bottleneck": rl.get("bottleneck"),
-              "constants": "H100 SXM data sheet"})
+              "constants": "H100 SXM data sheet",
+              **({"temp_gb": rec["memory"]["temp_bytes"] / 1e9,
+                  "temp_gb_before_remat": DRYRUN_TEMP_BEFORE_REMAT_GB[
+                      rec["arch"]]} if rec["shape"] == "train_4k" else {})})
         check(rec["status"] == "ok", f"dry run {rec['arch']} x "
                                      f"{rec['shape']}: {rec}")
         check(rec["memory"]["argument_bytes"]
@@ -3369,6 +3469,13 @@ def phase_dryrun():
               f"dry run {rec['arch']} x {rec['shape']}: argument bytes "
               f"{rec['memory']['argument_bytes']} are not the local shards' "
               f"{rec['argument_bytes_from_specs']}")
+        if rec["shape"] == "train_4k":
+            check(rec["memory"]["temp_bytes"] / 1e9
+                  < DRYRUN_TEMP_BEFORE_REMAT_GB[rec["arch"]],
+                  f"dry run {rec['arch']} x train_4k: temp "
+                  f"{rec['memory']['temp_bytes'] / 1e9} GB, not below the "
+                  f"{DRYRUN_TEMP_BEFORE_REMAT_GB[rec['arch']]} GB it held "
+                  "without activation checkpointing")
     emit({"phase": "dryrun", "cells": len(recs),
           "seconds": time.perf_counter() - t0})
 

@@ -88,12 +88,12 @@ class ArenaLayout:
         return sum(math.prod(s) for s in self.shapes)
 
     def leaf_sizes(self) -> tuple:
-        """Per-leaf coordinate counts in flatten order: the segment index
-        of ``row_segments`` is the leaf index a
-        :class:`~repro_torch.core.compressors.CompressionPlan` digit rule
-        names, and these sizes are the ``n`` its exact ``wire_bits``
-        rounding bills (the order of ``core/comm.py:leaf_info_of`` on the
-        unpacked tree)."""
+        """Per-leaf coordinate counts in flatten order (the segment index
+        of ``row_segments``, the order of ``core/comm.py:leaf_info_of`` on
+        the unpacked tree): the ``n`` a
+        :class:`~repro_torch.core.compressors.CompressionPlan`'s exact
+        ``wire_bits`` rounding bills. Its digit rules name leaves in the
+        reference's order instead (``leaf_info_of(...).ref_index``)."""
         return tuple(math.prod(s) for s in self.shapes)
 
     def row_segments(self, device=None) -> torch.Tensor:

@@ -8,7 +8,8 @@ bill it bit-true from the algorithm's attached compressor stack: the
 uplink pays the stack's exact per-leaf wire bits (``shift:q8`` is 8 bits
 per coordinate; a sparsifier its actual kept count per leaf, ``max(1,
 round(k * n))``; a ``CompressionPlan`` each leaf's own rule, resolved by
-the leaf's name and index from :func:`leaf_info_of`) times the sampling
+the leaf's name and its index in the reference's flatten order, both from
+:func:`leaf_info_of`) times the sampling
 duty cycle; the downlink stays dense f32 and is billed to present clients
 only. An attached topology reshapes
 the traffic (:func:`comm_hops_per_round`): gossip bills one message per
@@ -60,12 +61,63 @@ def leaf_name(path) -> str:
     return "/".join(parts)
 
 
-def leaf_info_of(params) -> list:
+def reference_leaf_index(tree) -> list[int]:
+    """Each leaf's position (``tree``'s leaves in torch's pytree order) in
+    the reference's flatten order. JAX flattens a dict by sorted key,
+    torch in insertion order; lists and tuples flatten in order in both.
+    The per-leaf subkeys ``fold_in(key, i)`` and a plan's digit rules take
+    this ``i``, so a message draws the reference's dithers, and a plan
+    names the reference's leaves, whatever order its dicts were built
+    in."""
+    paths = [p for p, _ in pytree.tree_flatten_with_path(tree)[0]]
+    first: dict = {}    # a path prefix -> its rank among its siblings
+    children: dict = {}
+    keys = []
+    for p in paths:
+        k = []
+        for depth, c in enumerate(p):
+            if isinstance(c, pytree.MappingKey):
+                k.append(c.key)
+                continue
+            pre = p[:depth + 1]
+            if pre not in first:
+                first[pre] = children.get(p[:depth], 0)
+                children[p[:depth]] = first[pre] + 1
+            k.append(first[pre])
+        keys.append(tuple(k))
+    index = [0] * len(paths)
+    for rank, j in enumerate(sorted(range(len(paths)), key=keys.__getitem__)):
+        index[j] = rank
+    return index
+
+
+class LeafInfo(list):
+    """A message leaf decomposition ``[(name, n_coords), ...]`` in torch's
+    flatten order (the arena's layout order) that carries, as
+    ``ref_index``, each leaf's position in the reference's flatten order
+    (:func:`reference_leaf_index` of the tree it was built from)."""
+
+    def __init__(self, pairs, ref_index):
+        super().__init__(pairs)
+        self.ref_index = tuple(ref_index)
+
+
+def leaf_info_of(params) -> LeafInfo:
     """The message leaf decomposition ``[(name, n_coords), ...]`` of a
     model tree, in flatten order (the arena's layout order): names feed
-    plan globs, sizes the exact per-leaf wire-bit rounding."""
+    plan globs, sizes the exact per-leaf wire-bit rounding, and its
+    ``ref_index`` the plan's digit rules."""
     flat, _ = pytree.tree_flatten_with_path(params)
-    return [(leaf_name(p), int(leaf.numel())) for p, leaf in flat]
+    return LeafInfo([(leaf_name(p), int(leaf.numel())) for p, leaf in flat],
+                    reference_leaf_index(params))
+
+
+def leaf_ref_index(leaf_info) -> list:
+    """Each entry's index in the reference's flatten order: a
+    :class:`LeafInfo`'s ``ref_index``; a plain ``(name, n)`` list is
+    taken to be in the reference's order already."""
+    index = getattr(leaf_info, "ref_index", None)
+    return list(range(len(leaf_info)) if index is None else index)
 
 
 def message_leaf_bits_of(algo, leaf_info) -> list | None:

@@ -64,7 +64,8 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core import arena as ar
 from repro_torch.core import prng
-from repro_torch.core.comm import (leaf_info_of, leaf_name, quantize_bf16,
+from repro_torch.core.comm import (leaf_info_of, leaf_name, leaf_ref_index,
+                                   quantize_bf16, reference_leaf_index,
                                    topk_sparsify)
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -79,35 +80,6 @@ def _coord_shape(leaf) -> tuple:
     """The per-client coordinate space of a stacked leaf (axis 0 is ALWAYS
     the client axis: a ``(n_clients,)`` leaf is a stacked scalar)."""
     return tuple(leaf.shape[1:])
-
-
-def reference_leaf_index(tree) -> list[int]:
-    """Each leaf's position (``tree``'s leaves in torch's pytree order) in
-    the reference's flatten order. JAX flattens a dict by sorted key,
-    torch in insertion order; lists and tuples flatten in order in both.
-    The per-leaf subkeys ``fold_in(key, i)`` take this ``i``, so a message
-    draws the reference's dithers whatever order its dicts were built
-    in."""
-    paths = [p for p, _ in pytree.tree_flatten_with_path(tree)[0]]
-    first: dict = {}    # a path prefix -> its rank among its siblings
-    children: dict = {}
-    keys = []
-    for p in paths:
-        k = []
-        for depth, c in enumerate(p):
-            if isinstance(c, pytree.MappingKey):
-                k.append(c.key)
-                continue
-            pre = p[:depth + 1]
-            if pre not in first:
-                first[pre] = children.get(p[:depth], 0)
-                children[p[:depth]] = first[pre] + 1
-            k.append(first[pre])
-        keys.append(tuple(k))
-    index = [0] * len(paths)
-    for rank, j in enumerate(sorted(range(len(paths)), key=keys.__getitem__)):
-        index[j] = rank
-    return index
 
 
 def _is_arena(x) -> bool:
@@ -689,8 +661,9 @@ def _stages_wire_bits(stages, n: int) -> float:
 
 def stack_wire_bits(stack, index: int, name: str, n: int) -> float:
     """Exact wire bits one client pays for leaf ``(index, name)`` of ``n``
-    coords through a TRANSFORM stack (one compressor per attached engine
-    transform, applied left to right). Plans resolve to their per-leaf
+    coords (``index`` in the reference's flatten order) through a
+    TRANSFORM stack (one compressor per attached engine transform, applied
+    left to right). Plans resolve to their per-leaf
     rule first; ``None`` entries bill nothing. Both lowerings (per leaf and
     arena) bill through this one rule."""
     stages: list = []
@@ -720,30 +693,38 @@ class CompressionPlan(Compressor):
 
     Patterns are globs over the slash-joined leaf path (the names of
     ``core/comm.py:leaf_info_of``), matched against the full path or any
-    single component, or all-digit strings naming a flatten-order leaf
-    index (the order of ``ArenaLayout.row_segments``). Unmatched leaves
-    fall through to ``default`` (``None`` = dense f32 passthrough).
+    single component, or all-digit strings naming a leaf by its index in
+    the reference's flatten order (:func:`reference_leaf_index`: JAX's,
+    dicts by sorted key), whatever order the port's dicts were built in.
+    Unmatched leaves fall through to ``default`` (``None`` = dense f32
+    passthrough).
 
     Leaf ``i`` is compressed with subkey ``fold_in(key, j)``, ``j`` its
-    :func:`reference_leaf_index` (the uniform per-tree enumeration), and stateful rule wrappers (:class:`Shifted`,
-    :class:`ErrorFeedback`) run leaf by leaf against a message-shaped
-    memory tree: a plan mapping EVERY leaf to one spec is bitwise equal to
-    uniform ``with_compression`` with that spec, and checkpoints
+    :func:`reference_leaf_index` (the uniform per-tree enumeration), and
+    stateful rule wrappers (:class:`Shifted`, :class:`ErrorFeedback`) run
+    leaf by leaf against a message-shaped memory tree: a plan mapping
+    EVERY leaf to one spec is bitwise equal to uniform
+    ``with_compression`` with that spec, and checkpoints
     interchange between the two. Arena messages unpack, apply per leaf and
     repack (flatten order == layout order), so both lowerings compress and
     bill identically.
 
     ``leaves`` optionally binds the leaf decomposition ``((name, n),
-    ...)`` so the scalar accounting (``bits_per_coord``) is exact; unbound
-    plans estimate it from their catch-all rule. Per-leaf billing
-    (``CommMeter.for_params``, ``comm_bits_per_round(..., leaf_info=)``)
-    is always exact."""
+    ...)`` (in the port's flatten order, with each leaf's reference index
+    in ``leaf_index``) so the scalar accounting (``bits_per_coord``) is
+    exact; unbound plans estimate it from their catch-all rule. Per-leaf
+    billing (``CommMeter.for_params``, ``comm_bits_per_round(...,
+    leaf_info=)``) is always exact, and resolves digits through the
+    ``ref_index`` that ``leaf_info_of`` carries."""
 
     rules: tuple = ()
     default: Compressor | None = None
     #: optional bound leaf decomposition ((name, n_coords), ...); attach
     #: via ``bind`` / ``allocate``.
     leaves: tuple | None = None
+    #: each bound leaf's index in the reference's flatten order (None: the
+    #: positions of ``leaves``).
+    leaf_index: tuple | None = None
 
     def __post_init__(self):
         for _, comp in self.rules:
@@ -811,7 +792,8 @@ class CompressionPlan(Compressor):
         catch-all rule (32.0 if none)."""
         if self.leaves:
             total = sum(n for _, n in self.leaves)
-            return sum(self.tree_wire_bits(self.leaves)) / float(total)
+            return sum(self.tree_wire_bits(
+                self.leaves, index=self.leaf_index)) / float(total)
         for pat, comp in self.rules:
             if pat == "*":
                 return 32.0 if comp is None else comp.bits_per_coord
@@ -821,16 +803,21 @@ class CompressionPlan(Compressor):
         comp = self.resolve(index, name)
         return float(n) * 32.0 if comp is None else comp.wire_bits(n)
 
-    def tree_wire_bits(self, leaf_info) -> list:
+    def tree_wire_bits(self, leaf_info, index=None) -> list:
         """Exact per-leaf wire bits for a ``[(name, n), ...]`` leaf
-        decomposition (one client, one up-vector)."""
-        return [self.leaf_wire_bits(i, nm, int(n))
-                for i, (nm, n) in enumerate(leaf_info)]
+        decomposition (one client, one up-vector); ``index`` (default
+        ``core/comm.py:leaf_ref_index``) gives each entry's reference
+        index."""
+        if index is None:
+            index = leaf_ref_index(leaf_info)
+        return [self.leaf_wire_bits(j, nm, int(n))
+                for j, (nm, n) in zip(index, leaf_info)]
 
     def bind(self, leaf_info) -> "CompressionPlan":
         """Attach the leaf decomposition so scalar accounting is exact."""
         info = tuple((str(nm), int(n)) for nm, n in leaf_info)
-        return dataclasses.replace(self, leaves=info)
+        return dataclasses.replace(
+            self, leaves=info, leaf_index=tuple(leaf_ref_index(leaf_info)))
 
     # -------------------------------------------------------------- compute
     def compress(self, key, leaf):
@@ -872,7 +859,7 @@ class CompressionPlan(Compressor):
         index = reference_leaf_index(msg)
         out, new_e = [], []
         for i, ((path, leaf), e) in enumerate(zip(flat, e_leaves)):
-            comp = self.resolve(i, leaf_name(path))
+            comp = self.resolve(index[i], leaf_name(path))
             sub = (prng.fold_in(key, index[i])
                    if key is not None and comp is not None
                    and comp.requires_key else None)
@@ -907,12 +894,14 @@ class CompressionPlan(Compressor):
         bits per client per round; returns the bound plan.
 
         ``leaves`` is the message / params tree (or a ``[(name, n)]``
-        decomposition). ``sensitivity`` weighs leaves: ``"rms"``
-        (per-leaf root-mean-square), ``"absmax"`` (per-leaf ``max|x|``,
-        the grid scale StochasticQuant uses), ``"grad_norm"`` (``|g| /
-        sqrt(n)`` of the ``grads`` tree), an explicit per-leaf sequence,
-        or None (uniform). Dithered quantization at ``b`` bits costs
-        ``~ n s^2 4^-b`` mean-square error, so the allocator water-fills,
+        decomposition, taken to be in the reference's flatten order unless
+        it is a ``core/comm.py:LeafInfo``). ``sensitivity`` weighs leaves:
+        ``"rms"`` (per-leaf root-mean-square), ``"absmax"`` (per-leaf
+        ``max|x|``, the grid scale StochasticQuant uses), ``"grad_norm"``
+        (``|g| / sqrt(n)`` of the ``grads`` tree), an explicit per-leaf
+        sequence in the reference's flatten order, or None (uniform).
+        Dithered quantization at ``b`` bits costs ``~ n s^2 4^-b``
+        mean-square error, so the allocator water-fills,
         granting +1 bit to the leaf with the highest ``s_i^2 4^-b_i`` that
         still fits. ``wrap`` wraps every per-leaf quantizer (``"shift"``,
         ``"ef"``, or None = bare)."""
@@ -920,9 +909,11 @@ class CompressionPlan(Compressor):
                 and isinstance(leaves[0], (list, tuple)) \
                 and len(leaves[0]) == 2 and isinstance(leaves[0][1], int):
             info = [(str(nm), int(n)) for nm, n in leaves]
+            index = leaf_ref_index(leaves)
             values = None
         else:
             info = leaf_info_of(leaves)
+            index = leaf_ref_index(info)
             values = tree_leaves(leaves)
         if sensitivity is None or sensitivity == "uniform":
             s = [1.0] * len(info)
@@ -952,9 +943,14 @@ class CompressionPlan(Compressor):
                                  "| None)")
         else:
             s = [float(v) for v in sensitivity]
+            if len(s) == len(info):
+                s = [s[j] for j in index]
         if len(s) != len(info):
             raise ValueError(f"sensitivity has {len(s)} entries for "
                              f"{len(info)} leaves")
+        # rules, and ties in the heap, follow the reference's leaf order
+        order = sorted(range(len(info)), key=index.__getitem__)
+        bound = dict(leaves=tuple(info), leaf_index=tuple(index))
         max_bits = min(max_bits, 16)
         floor_cost = sum(n for _, n in info) * min_bits
         mk_wrap = {"shift": Shifted, "ef": ErrorFeedback,
@@ -964,25 +960,27 @@ class CompressionPlan(Compressor):
             # one shared k_frac scales the whole message into budget.
             k = max(budget_bits_per_round / float(floor_cost), 1.0 / 64.0)
             rules = tuple(
-                (nm, mk_wrap(Chain((RandK(k), StochasticQuant(min_bits)))))
-                for nm, _ in info)
-            return CompressionPlan(rules=rules, leaves=tuple(info))
+                (info[i][0],
+                 mk_wrap(Chain((RandK(k), StochasticQuant(min_bits)))))
+                for i in order)
+            return CompressionPlan(rules=rules, **bound)
         bits = [min_bits] * len(info)
         spend = budget_bits_per_round - floor_cost
-        heap = [(-(s[i] ** 2 * 4.0 ** -bits[i]), i)
+        heap = [(-(s[i] ** 2 * 4.0 ** -bits[i]), index[i], i)
                 for i in range(len(info)) if s[i] > 0.0]
         heapq.heapify(heap)
         while heap:
-            _, i = heapq.heappop(heap)
+            _, _, i = heapq.heappop(heap)
             n_i = info[i][1]
             if bits[i] >= max_bits or n_i > spend:
                 continue  # this leaf is done; cheaper leaves may still fit
             bits[i] += 1
             spend -= n_i
-            heapq.heappush(heap, (-(s[i] ** 2 * 4.0 ** -bits[i]), i))
-        rules = tuple((nm, mk_wrap(StochasticQuant(bits[i])))
-                      for i, (nm, _) in enumerate(info))
-        return CompressionPlan(rules=rules, leaves=tuple(info))
+            heapq.heappush(heap, (-(s[i] ** 2 * 4.0 ** -bits[i]), index[i],
+                                  i))
+        rules = tuple((info[i][0], mk_wrap(StochasticQuant(bits[i])))
+                      for i in order)
+        return CompressionPlan(rules=rules, **bound)
 
     def tightened(self, *, bits_step: int = 1, k_scale: float = 0.5,
                   min_bits: int = 2, min_k: float = 1.0 / 64.0

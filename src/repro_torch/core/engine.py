@@ -558,19 +558,20 @@ class RoundEngine:
         """EXACT per-leaf uplink wire bits for one client's one UP vector,
         given the message leaf decomposition ``[(name, n_coords), ...]``
         (``core/comm.py:leaf_info_of``): actual kept counts, and a plan's
-        rule per leaf. ``None`` where per-leaf billing does not apply: a
+        rule per leaf (digits by the reference's leaf index). ``None`` where per-leaf billing does not apply: a
         spec that overrides ``bits_per_coord`` bills compression of its own
         the engine cannot decompose (FedLin's round-start top-k). Never
         inspects the arena: the decomposition comes from the unpacked
         parameters either way."""
         if type(self).bits_per_coord is not RoundEngine.bits_per_coord:
             return None
+        from repro_torch.core.comm import leaf_ref_index
         from repro_torch.core.compressors import stack_wire_bits
 
         stack = [t._compressor() if isinstance(t, ErrorFeedbackCompression)
                  else t.compressor for t in self.transforms]
-        return [stack_wire_bits(stack, i, nm, int(n))
-                for i, (nm, n) in enumerate(leaf_info)]
+        return [stack_wire_bits(stack, j, nm, int(n))
+                for j, (nm, n) in zip(leaf_ref_index(leaf_info), leaf_info)]
 
     @property
     def down_frac(self) -> float:

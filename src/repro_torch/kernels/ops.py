@@ -376,7 +376,10 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     float32 and bfloat16; the plain version also float64. DTensors run
     shard-local (batch- or head-sharded, or replicated) or raise."""
     kernel = _use_kernel(impl, q)
-    if _needs_grad(q, k, v):
+    if _needs_grad(q, k, v) or not (kernel or is_dtensor(q)):
+        # the plain version on plain tensors runs as torch ops: it takes
+        # autograd and batches under vmap (a rematerialized body's
+        # forward runs without autograd inside the clients' vmap)
         return (KF if kernel else R).flash_attention(
             q, k, v, kind=kind, window=window, chunk=chunk)
     if is_dtensor(q):
@@ -399,7 +402,8 @@ def ssd_intra(x, dt, a_cs, Bm, Cm, impl: str = "auto"):
     backward; the plain version also takes float64 and autograd. DTensors
     run shard-local (batch- or head-sharded, or replicated) or raise."""
     kernel = _use_kernel(impl, x)
-    if _needs_grad(x, dt, a_cs, Bm, Cm):
+    if _needs_grad(x, dt, a_cs, Bm, Cm) or not (kernel or is_dtensor(x)):
+        # the plain version on plain tensors as torch ops, as above
         return (KS if kernel else R).ssd_intra(x, dt, a_cs, Bm, Cm)
     if is_dtensor(x):
         from torch.distributed.tensor import Replicate, Shard

@@ -6,7 +6,8 @@ chunked / bidirectional masks, and three execution paths:
   and the oracle of the others);
 * ``attend_blockwise`` streams the softmax over KV blocks in grouped form
   (``[B, S, Hkv, G, D]`` queries; KV never repeated to Hq), so a long
-  sequence never materializes ``[S, S]``;
+  sequence never materializes ``[S, S]``; each block is rematerialized
+  in the backward (``models/remat.py``), as in the reference;
 * ``attend_decode`` is one-token attention against a KV cache, in grouped
   form, masked by the absolute position stored in each cache slot.
 
@@ -26,12 +27,14 @@ from the card.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import remat
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 from repro_torch.utils.sharding_ctx import (batch_local, gather_dims,
                                             grad_in_layout, is_dtensor,
@@ -148,29 +151,37 @@ def attend_blockwise(q, k, v, allowed, *, block_size: int = 512):
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     qg = q.reshape(B, S, Hkv, G, D).to(torch.float32)
-    qpos = torch.arange(S, device=q.device)
     # the running sums take q's layout (a DTensor's shards, not a whole
     # replicated tensor)
     acc = torch.zeros_like(qg)
     m = torch.full_like(qg[..., 0], NEG_INF)
     denom = torch.zeros_like(m)
-    for i in range(nblk):
-        lo = i * block_size
-        hi = min(lo + block_size, T) if cut else lo + block_size
-        sl = slice(lo, hi)
-        kpos = lo + torch.arange(hi - lo, device=q.device)
+    dtype = q.dtype
+
+    def body(lo, carry, qg, kblk, vblk):
+        acc, m, denom = carry
+        qpos = torch.arange(S, device=qg.device)
+        kpos = lo + torch.arange(kblk.shape[1], device=qg.device)
         scores = torch.einsum("bshgd,bthd->bshgt", qg,
-                              k[:, sl].to(torch.float32)) / math.sqrt(D)
+                              kblk.to(torch.float32)) / math.sqrt(D)
         ok = allowed(qpos[:, None], kpos[None, :]) & (kpos < T)[None, :]
         scores = torch.where(ok[None, :, None, None, :], scores, NEG_INF)
         m_new = torch.maximum(m, scores.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(scores - m_new[..., None])
         acc = acc * alpha[..., None] + torch.einsum(
-            "bshgt,bthd->bshgd", p.to(q.dtype).to(torch.float32),
-            v[:, sl].to(torch.float32))
-        denom = denom * alpha + p.sum(dim=-1)
-        m = m_new
+            "bshgt,bthd->bshgd", p.to(dtype).to(torch.float32),
+            vblk.to(torch.float32))
+        return acc, m_new, denom * alpha + p.sum(dim=-1)
+
+    # each block is rematerialized, as the reference's jax.checkpoint on
+    # its scan body: the backward keeps the running sums at the block
+    # boundaries, not every block's float32 scores
+    for i in range(nblk):
+        lo = i * block_size
+        sl = slice(lo, min(lo + block_size, T) if cut else lo + block_size)
+        acc, m, denom = remat.checkpoint(functools.partial(body, lo))(
+            (acc, m, denom), qg, k[:, sl], v[:, sl])
     out = acc / torch.clamp(denom[..., None], min=1e-30)
     return out.reshape(B, S, Hq, D).to(q.dtype)
 

@@ -20,6 +20,12 @@ encoder's bidirectional attention and the decoder's causal
 self-attention through ``ops.flash_attention`` (``"auto"``: the kernel on
 the card, the plain version on the CPU). Cross-attention stays
 ``attend_naive`` everywhere: no kernel of the reference computes it.
+
+With ``cfg.remat`` and stacked layers, each encoder and decoder layer is
+rematerialized in the backward (``models/remat.py``), as the
+reference's ``jax.checkpoint`` on its scan bodies; the decoder's layers
+take the encoder's output as an input, so its gradient reaches the
+encoder.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import remat
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -155,14 +162,20 @@ class EncDecLM(nn.Module):
         x = frames.to(torch_dtype(cfg.dtype))
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
                                      device=x.device)[None]
-        for p in self._layers(params, "encoder", cfg.encoder_layers):
+
+        def body(p, x):
             x = shard_residual(x)
             h = apply_norm(x, p["ln1"], "layernorm")
             x = x + attn.attention(p["attn"], h, kind="bidirectional",
                                    block_size=cfg.attn_block_size,
                                    use_pallas=use_pallas, **self._attn_kw())
             h = apply_norm(x, p["ln2"], "layernorm")
-            x = x + apply_mlp(h, p["mlp"], activation="gelu")
+            return x + apply_mlp(h, p["mlp"], activation="gelu")
+
+        if cfg.remat and cfg.scan_layers:
+            body = remat.checkpoint(body)
+        for p in self._layers(params, "encoder", cfg.encoder_layers):
+            x = body(p, x)
         return apply_norm(x, params["enc_norm"], "layernorm")
 
     # -------------------------------------------------------------- decoder
@@ -195,7 +208,8 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         memory = self.encode(params, batch["frames"])
         x = self._dec_embed(params, batch["tokens"])
-        for p in self._layers(params, "decoder", cfg.n_layers):
+
+        def body(p, x, memory):
             x = shard_residual(x)
             h = apply_norm(x, p["ln1"], "layernorm")
             x = x + attn.attention(p["self_attn"], h, kind="full",
@@ -203,7 +217,12 @@ class EncDecLM(nn.Module):
                                    **self._attn_kw())
             k, v = _cross_kv(p["cross_attn"], memory, cfg.n_heads,
                              cfg.head_dim)
-            x = self._cross(p, x, k, v)
+            return self._cross(p, x, k, v)
+
+        if cfg.remat and cfg.scan_layers:
+            body = remat.checkpoint(body)
+        for p in self._layers(params, "decoder", cfg.n_layers):
+            x = body(p, x, memory)
         return x
 
     def forward(self, params, batch) -> torch.Tensor:

@@ -13,7 +13,10 @@ shared-attn] * G``, then the ``R`` trailing Mamba2 layers (``rest``).
 The Mamba groups come in the reference's two layouts: one tree of
 ``[G, every, ...]`` leaves (``scan_layers=True``, the full config; the
 reference's nested ``lax.scan`` a loop over both axes) or nested lists
-(``reduced()``). Caches follow: ``{"ssm": SSMCache of [G, every, ...] (or
+(``reduced()``); with ``cfg.remat`` each stacked group (its Mamba2
+layers and the shared block) is rematerialized in the backward
+(``models/remat.py``), as the reference's ``jax.checkpoint`` on its
+group body. Caches follow: ``{"ssm": SSMCache of [G, every, ...] (or
 nested lists), "kv": KVCache of [G, ...] (or a list), "rest": [SSMCache]}``,
 the stacked ones written in place through per-layer views.
 
@@ -32,6 +35,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import remat
 from repro_torch.models.layers import (apply_norm, embed_init, embed_lookup,
                                        init_norm, torch_dtype)
 from repro_torch.models.losses import chunked_ce
@@ -118,10 +122,16 @@ class HybridLM(nn.Module):
     # ------------------------------------------------------------- training
     def _stack(self, params, x):
         cfg = self.cfg
-        for group in self._groups(params):
+
+        def group_body(group, shared, x):
             for p in group:
                 x = apply_mamba_block(p, x, cfg)
-            x, _ = apply_block(params["shared_attn"], x, cfg)
+            return apply_block(shared, x, cfg)[0]
+
+        if cfg.remat and self._stacked():
+            group_body = remat.checkpoint(group_body)
+        for group in self._groups(params):
+            x = group_body(group, params["shared_attn"], x)
         for p in params["rest"]:
             x = apply_mamba_block(p, x, cfg)
         return x

@@ -1,20 +1,20 @@
 """Language-model loss (port of ``src/repro/models/losses.py``:
 ``chunked_ce``).
 
-The reference scans the sequence in ``CE_CHUNK`` chunks under
-``jax.checkpoint`` so that the full ``[B, S, V]`` logits never live at
-once. The port loops over the same chunks without checkpointing: it runs
-inside ``torch.func`` transforms, and at the slice's shapes (seq 128, one
-chunk) the float32 logits of 4 clients x 8 x 128 x 16384 take about
-268 MB. Logits are float32 whatever the hidden dtype, as in the reference;
-autograd casts the cotangent back to the hidden dtype, which is what the
-reference's ``_grad_dtype_guard`` does by hand.
+The sequence is scored in ``CE_CHUNK`` chunks, each rematerialized in the
+backward (``models/remat.py``), as the reference's ``jax.checkpoint`` on
+its scan body: the full ``[B, S, V]`` logits never live at once, in the
+forward or in the backward. Logits are float32 whatever the hidden
+dtype, as in the reference; autograd casts the cotangent back to the
+hidden dtype, which is what the reference's ``_grad_dtype_guard`` does
+by hand.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import remat
 from repro_torch.utils.sharding_ctx import (is_dtensor, resolve_partial,
                                             shard_logits)
 
@@ -35,13 +35,21 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, tokens: torch.Tensor, *,
     n = targets.shape[1]
     c = min(chunk, n)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = remat.checkpoint(_chunk_ce)
     for s in range(0, n, c):
-        logits = shard_logits((preds[:, s:s + c] @ head).to(torch.float32))
-        logz = _logsumexp(logits)
-        gold = resolve_partial(torch.gather(
-            logits, -1, targets[:, s:s + c, None].to(torch.int64)))[..., 0]
-        total = total + torch.sum(logz - gold)
+        total = total + body(preds[:, s:s + c], head, targets[:, s:s + c])
     return total / (B * n)
+
+
+def _chunk_ce(x_c: torch.Tensor, head: torch.Tensor,
+              t_c: torch.Tensor) -> torch.Tensor:
+    """The summed cross entropy of one chunk: ``x_c [B, c, d]`` through
+    ``head`` against the token ids ``t_c [B, c]``."""
+    logits = shard_logits((x_c @ head).to(torch.float32))
+    logz = _logsumexp(logits)
+    gold = resolve_partial(torch.gather(
+        logits, -1, t_c[..., None].to(torch.int64)))[..., 0]
+    return torch.sum(logz - gold)
 
 
 def _logsumexp(logits: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ The model is a pure function of an explicit parameter tree with the
 reference's keys and layouts (``embed [V, d]``, an untied ``lm_head [d,
 V]``), in both of its layer layouts: stacked ``[L, ...]`` leaves
 (``scan_layers=True``, the full config; the reference's ``lax.scan`` a
-loop over ``L``) or a list of per-layer dicts (``reduced()``).
+loop over ``L``) or a list of per-layer dicts (``reduced()``). With
+``cfg.remat`` each stacked block is rematerialized in the backward
+(``models/remat.py``), as the reference's ``jax.checkpoint``.
 
 Serving: ``init_caches`` (one ``SSMCache`` of stacked ``[L, ...]``
 tensors for stacked layers, a list otherwise; the state is O(1) in the
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import remat
 from repro_torch.models.layers import (apply_norm, embed_init, embed_lookup,
                                        init_norm, torch_dtype)
 from repro_torch.models.losses import chunked_ce
@@ -81,10 +84,14 @@ class Mamba2LM(nn.Module):
 
     def _hidden(self, params, tokens):
         """Final-norm hidden states [B, S, d]."""
+        cfg = self.cfg
         x = self._embed(params, tokens)
+        block = lambda p, x: apply_mamba_block(p, x, cfg)  # noqa: E731
+        if cfg.remat and cfg.scan_layers:
+            block = remat.checkpoint(block)
         for p in self._layers(params):
-            x = apply_mamba_block(p, x, self.cfg)
-        return apply_norm(x, params["final_norm"], self.cfg.norm)
+            x = block(p, x)
+        return apply_norm(x, params["final_norm"], cfg.norm)
 
     def forward(self, params, batch) -> torch.Tensor:
         """Full-sequence logits [B, S, V]."""

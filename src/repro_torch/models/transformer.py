@@ -8,8 +8,10 @@ FedCET treats the whole tree as the optimization variable and stacks it
 over clients. Two layer layouts, as in the reference: stacked ``[L,
 ...]`` leaves (``scan_layers=True``, the full config; the reference's
 ``lax.scan`` becomes a loop over ``L``) or a list of per-layer dicts
-(``reduced()``). Activation checkpointing (``remat``) is not applied: the
-model runs inside ``torch.func`` transforms.
+(``reduced()``). With ``cfg.remat`` each stacked layer is
+rematerialized (``models/remat.py``): the backward keeps the layer
+boundaries and recomputes one layer at a time, as the reference's
+``jax.checkpoint`` on its scan body.
 
 Block variants: RMSNorm or LayerNorm (with biases), SwiGLU, GeGLU or GELU
 MLPs (with biases), MoE feed-forwards (``models/moe.py``: their load-
@@ -34,6 +36,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import remat
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -181,8 +184,11 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         x = self._embed(params, batch["tokens"], batch.get("image_embeds"))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        block = lambda p, x: apply_block(p, x, cfg)  # noqa: E731
+        if cfg.remat and cfg.scan_layers:
+            block = remat.checkpoint(block)
         for p in self._layers(params):
-            x, a = apply_block(p, x, cfg)
+            x, a = block(p, x)
             aux = aux + a
         return apply_norm(x, params["final_norm"], cfg.norm), aux
 

@@ -9,6 +9,9 @@ run traces on fake tensors, which compute nothing.
 Conventions:
   * matmul FLOPs = 2mnk; training = 4x forward for the scanned blocks
     (fwd + 2x bwd + 1x remat recompute), 3x for the un-remat'd LM head.
+    The port recomputes where ``cfg.remat`` holds (``models/remat.py``);
+    fedlm-100m and the ``reduced()`` configs do not, as in the reference,
+    and the term bills them the same 4x.
   * the baseline blockwise attention computes ALL KV blocks then masks, so
     its attention context is S (not S/2 causal / w sliding). The port's
     flash kernel skips fully masked tiles, so a measured time can beat

@@ -14,11 +14,16 @@ participation x compression x a block cohort, and the arena.
 
 Leaf order: trees crossed over from the reference arrive with sorted
 keys (JAX's flatten order). A model the port initializes itself
-flattens in insertion order, and so does its arena: a plan with digit
-rules over such a model gives the same result packed and unpacked.
+flattens in insertion order, and so does its arena. A digit rule names a
+leaf by its index in the reference's order whatever order the tree was
+built in: on a port-initialized model every digit plan compresses, and
+bills, the leaves the reference's plan names, and the allocator gives
+every leaf the reference's width (a tie goes to the lower reference
+index). The arena lowering equals the per-leaf one bit for bit there.
 """
 
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -448,10 +453,11 @@ PORT_PLAN = "0:q4,ln*:bf16,3:ef:topk:0.3,*:shift:q6"
 
 def test_plan_on_a_port_initialized_model_packs_and_unpacks_alike():
     """The port's own init flattens in insertion order (``embed`` first,
-    ``lm_head`` last), not JAX's sorted order; plan resolution (digit
-    rules included) and the arena's layout follow that one order, so the
-    plan's arena lowering equals its per-leaf lowering bit for bit, for
-    the message and the memory."""
+    ``lm_head`` last), not JAX's sorted order, and so does the arena's
+    layout. Digit rules resolve by the reference's leaf index in both
+    lowerings (the arena unpacks to the same tree), so the plan's arena
+    lowering equals its per-leaf lowering bit for bit, for the message
+    and the memory."""
     from repro_torch.core import prng
     from repro_torch.core.comm import leaf_info_of
 
@@ -474,6 +480,114 @@ def test_plan_on_a_port_initialized_model_packs_and_unpacks_alike():
     for a, b in zip(tree_leaves(unpack(mem_a)), tree_leaves(new_mem)):
         assert torch.equal(a, b)
     assert not torch.equal(tree_leaves(out)[0], tree_leaves(msg)[0])
+
+
+DIGIT_PLANS = ["7:bf16,*:shift:q6", "1:bf16,3:ef:topk:0.3,*:shift:q6",
+               PORT_PLAN]
+
+
+def _spec_of(comp) -> str:
+    """A compressor's fields as text, either package's (the kernel switch,
+    which the reference's CPU tests leave off, dropped)."""
+    return re.sub(r"use_kernel=\w+, ", "", repr(comp))
+
+
+def _by_name(info, values):
+    return dict(zip((nm for nm, _ in info), values))
+
+
+@pytest.mark.parametrize("spec", DIGIT_PLANS)
+def test_digit_rules_name_the_reference_leaves_on_a_port_model(spec):
+    """On the port-initialized tiny LM (dicts in insertion order), a plan
+    with digit rules resolves, compresses and bills every leaf as the
+    reference's plan does on the same values (its dicts sorted): the same
+    compressor per leaf name, the same codes and memories within 1e-12,
+    and the same bits per leaf through the plan, the engine's per-leaf
+    billing and a bound plan's ``bits_per_coord``."""
+    jax = _jax()
+    from repro.core.comm import leaf_info_of as jinfo_of
+    from repro.core.comm import message_leaf_bits_of as jbits_of
+    from repro.core.compressors import parse_plan as jparse
+    from repro.core.engine import with_compression as jwith
+    from repro.core.fedcet import FedCET as JFedCET
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import prng
+    from repro_torch.core.comm import leaf_info_of, message_leaf_bits_of
+
+    _, params = _tiny_lm()
+    info = leaf_info_of(params)
+    as_np = lambda t: pytree.tree_map(lambda a: a.numpy(), t)  # noqa: E731
+    jparams = as_np(params)
+    jinfo = jinfo_of(jparams)
+    assert [nm for nm, _ in info] != [nm for nm, _ in jinfo]  # unsorted
+    plan, jplan = parse_plan(spec), jparse(spec)
+    assert _by_name(info, plan.tree_wire_bits(info)) \
+        == _by_name(jinfo, jplan.tree_wire_bits(jinfo))
+    assert plan.bind(info).bits_per_coord == jplan.bind(jinfo).bits_per_coord
+    algo = with_compression(FedCET(alpha=1e-2, c=0.1, tau=TAU, n_clients=3),
+                            compressor=plan)
+    jalgo = jwith(JFedCET(alpha=1e-2, c=0.1, tau=TAU, n_clients=3),
+                  compressor=jplan)
+    assert _by_name(info, message_leaf_bits_of(algo, info)) \
+        == _by_name(jinfo, jbits_of(jalgo, jinfo))
+
+    rng = np.random.default_rng(0)
+    msg = tree_map(lambda p: torch.tensor(rng.standard_normal(
+        (3,) + tuple(p.shape))), params)
+    mem = plan.init_extra(msg)
+    if mem is not None:
+        mem = tree_map(lambda e: e + torch.tensor(
+            rng.standard_normal(e.shape)), mem)
+    out, new_mem = plan.apply(prng.key(11), msg, mem)
+    want, want_mem = jplan.apply(jax.random.key(11), as_np(msg),
+                                 None if mem is None else as_np(mem))
+    for got_t, want_t in ((out, want), (new_mem, want_mem)):
+        if got_t is None:
+            assert want_t is None
+            continue
+        got_n = _by_name(info, tree_leaves(got_t))
+        want_n = _by_name(jinfo, jax.tree.leaves(want_t))
+        assert got_n.keys() == want_n.keys()
+        for nm, g in got_n.items():
+            np.testing.assert_allclose(g.numpy(), np.asarray(want_n[nm]),
+                                       rtol=0, atol=TOL, err_msg=nm)
+    comps = _by_name(info, [_spec_of(plan.resolve(j, nm)) for j, (nm, _)
+                            in zip(info.ref_index, info)])
+    assert comps == {nm: _spec_of(jplan.resolve(i, nm))
+                     for i, (nm, _) in enumerate(jinfo)}
+
+
+@pytest.mark.parametrize("budget", [3.3, 4.7, "sequence"])
+def test_allocator_gives_each_leaf_the_reference_width(budget):
+    """``allocate`` on the port-initialized tiny LM gives every leaf name
+    the reference's width: uniform sensitivity at 3.3 and 4.7 bits a
+    coordinate (every leaf ties; the last partial round of bits goes by
+    the reference's index), and an explicit per-leaf sequence, read in the
+    reference's flatten order, at 3.3."""
+    _jax()
+    from repro.core.comm import leaf_info_of as jinfo_of
+    from repro.core.compressors import CompressionPlan as JPlan
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core.comm import leaf_info_of
+
+    _, params = _tiny_lm()
+    jparams = pytree.tree_map(lambda a: a.numpy(), params)
+    info, jinfo = leaf_info_of(params), jinfo_of(jparams)
+    n_total = sum(n for _, n in info)
+    sens = None
+    if budget == "sequence":  # one weight a leaf, in the reference's order
+        sens, budget = [1.0 + (i % 3) for i in range(len(info))], 3.3
+    kw = dict(sensitivity=sens, wrap="shift", min_bits=2, max_bits=12)
+    plan = CompressionPlan().allocate(budget * n_total, leaves=params, **kw)
+    want = JPlan().allocate(budget * n_total, leaves=jparams, **kw)
+    width = lambda p: {nm: c.inner.bits for nm, c in p.rules}  # noqa: E731
+    assert width(plan) == width(want)
+    assert [nm for nm, _ in plan.rules] == [nm for nm, _ in want.rules]
+    assert len(set(width(plan).values())) > 1  # the budget splits widths
+    assert sum(plan.tree_wire_bits(info)) == sum(want.tree_wire_bits(jinfo))
+    assert plan.bits_per_coord == want.bits_per_coord
 
 
 def test_plan_rounds_take_the_generic_seam_on_the_arena(monkeypatch):
