@@ -1319,83 +1319,34 @@ def phase_prng():
     torch.cuda.empty_cache()
 
 
-class _Timeline:
-    """CUDA-event intervals of the gradient evaluations, the kernel
-    wrappers, the dither draws, the scale pass, pack/unpack, the
-    topology's reduce, the logged loss and the telemetry's end-of-round
-    finalize, and a cohort round's gather from and scatter into the client
-    store, grouped per training round (closed by the round callback).
-    ``topology_ms`` CONTAINS ``gossip_ms`` (the kernel inside the sparse
-    reduce) and ``telemetry_ms`` contains ``sketch_ms`` (the sketch
-    wrapper); the other intervals do not nest. The in-round telemetry
-    captures (gradient and message norms) fall in ``other_ms``."""
-
-    KEYS = ("grad", "fedcet_v", "fedcet_comm", "quantize", "round_tail",
-            "dither", "scale", "pack", "topology", "gossip", "loss",
-            "telemetry", "sketch", "gather", "scatter")
-    NESTED = ("gossip", "sketch")
-
-    def __init__(self):
-        self.open, self.rounds = [], []
-
-    def wrap(self, fn, key):
-        def timed(*args, **kw):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = fn(*args, **kw)
-            e.record()
-            self.open.append((key, s, e))
-            return out
-        return timed
-
-    def close_round(self):
-        torch.cuda.synchronize()
-        split = {k + "_ms": 0.0 for k in self.KEYS}
-        for key, s, e in self.open:
-            split[key + "_ms"] += s.elapsed_time(e)
-        self.rounds.append(split)
-        self.open = []
+#: the ``split_ms`` keys of a train line: each the summed self time of the
+#: program's spans of that name (``repro_torch/utils/spans.py``), so they
+#: and ``other`` partition the round, its loss and its telemetry
+SPLIT_KEYS = ("grad", "fedcet_v", "fedcet_comm", "quantize", "round_tail",
+              "dither", "scale", "pack", "topology", "gossip", "loss",
+              "telemetry", "sketch", "gather", "scatter")
+#: the round's structural spans: their self time is ``other_ms``, the time
+#: no keyed span covers (masks, the in-round telemetry captures, glue)
+SPLIT_OTHER = ("round", "local", "comm", "transmit")
 
 
-def _instrument(timeline):
-    """Route the timed functions through ``timeline``; returns an undo."""
-    from repro_torch.core import (arena, compressors, engine, prng,
-                                  telemetry, topology)
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train
+def _split_ms(recording):
+    """One round's ``split_ms`` from the span recorder's ``drain()``: every
+    span drained, whatever its round index (round 0's holds the warm-up)."""
+    from repro_torch.utils import spans
 
-    patches = [(engine, "vmap_grads",
-                lambda real: (lambda f, **kw: timeline.wrap(real(f, **kw),
-                                                            "grad"))),
-               (ops, "fedcet_v", "fedcet_v"), (ops, "fedcet_comm",
-                                               "fedcet_comm"),
-               (ops, "stochastic_quantize", "quantize"),
-               (ops, "stochastic_quantize_rows", "quantize"),
-               (ops, "fedcet_round_tail", "round_tail"),
-               (prng, "uniform", "dither"),
-               (compressors, "arena_scale", "scale"),
-               (arena, "pack_rows", "pack"), (arena, "unpack", "pack"),
-               (ops, "gossip_reduce", "gossip"),
-               (topology.Topology, "reduce_and_advance", "topology"),
-               (topology.Hierarchical, "reduce_and_advance", "topology"),
-               (train, "mean_client_loss", "loss"),
-               (telemetry.Telemetry, "finalize", "telemetry"),
-               (ops, "telemetry_sketch", "sketch"),
-               (engine, "gather_clients", "gather"),
-               (engine, "scatter_clients", "scatter")]
-    saved = []
-    for mod, name, how in patches:
-        real = getattr(mod, name)
-        saved.append((mod, name, real))
-        setattr(mod, name, how(real) if callable(how)
-                else timeline.wrap(real, how))
+    split = {k + "_ms": 0.0 for k in SPLIT_KEYS + ("other",)}
+    for s, ms in zip(recording.spans, spans.self_ms(recording.spans)):
+        key = "other" if s.name in SPLIT_OTHER else s.name
+        split[key + "_ms"] = split.get(key + "_ms", 0.0) + ms
+    return split
 
-    def undo():
-        for mod, name, real in saved:
-            setattr(mod, name, real)
 
-    return undo
+def _counts(recording) -> dict:
+    """The recorder's round counters, summed: new ``cudaMalloc`` segments
+    and allocations that freed the cache and tried again."""
+    return {k: sum(recording.counts.get(k, {}).values())
+            for k in ("mallocs", "alloc_retries")}
 
 
 #: train paths: scenario options, the kernel forms each must launch, and
@@ -1524,16 +1475,17 @@ def _plan_scenario():
 def _train_path(name, scenario, expected, config):
     from repro_torch.kernels import library as L
     from repro_torch.launch.train import run_training
+    from repro_torch.utils import spans
     from repro_torch.utils.tree import tree_leaves
 
     config = dict(config)
     arch = config.pop("arch", "fedlm-100m")
-    timeline = _Timeline()
-    undo = _instrument(timeline)
-    invariants, final = [], {}
+    invariants, final, rounds, counts = [], {}, [], []
 
     def on_round(r, loss, comm, state):
-        timeline.close_round()
+        rec = spans.drain()
+        rounds.append(_split_ms(rec))
+        counts.append(_counts(rec))
         inner = state.inner if hasattr(state, "extras") else state
         if r == config["steps"] - 1 and name in COMPARED:
             final["x"] = [t.cpu() for t in tree_leaves(inner.x)]
@@ -1555,20 +1507,20 @@ def _train_path(name, scenario, expected, config):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     L.reset_launches()
+    spans.enable()
     try:
         hist = run_training(arch, reduced=False, device="cuda",
                             log_every=1, callback=on_round, **config,
                             **scenario)
     finally:
-        undo()
+        spans.disable()
+        spans.drain()
     launches = dict(L.LAUNCHES)
     for i, r in enumerate(hist["round"]):
-        split = timeline.rounds[i]
-        split["other_ms"] = 1e3 * hist["seconds"][i] - sum(
-            v for k, v in split.items() if k[:-3] not in _Timeline.NESTED)
         emit({"phase": "train", "path": name, "round": r,
               "loss": hist["loss"][i], "round_s": hist["seconds"][i],
-              "invariant": invariants[i], "split_ms": split,
+              "invariant": invariants[i], "split_ms": rounds[i],
+              **counts[i],
               "note": "round 0 also holds the warm-up" if r == 0 else ""})
     emit({"phase": "train", "path": name, "scenario": scenario,
           "arch": arch, "reduced": False,
@@ -1582,7 +1534,7 @@ def _train_path(name, scenario, expected, config):
     final["comm_bytes"] = hist["comm_bytes"]
     MEASURED[name] = {"arch": arch, "config": config,
                       "round_s": hist["seconds"]}
-    return launches, hist["loss"], final, timeline.rounds
+    return launches, hist["loss"], final, rounds
 
 
 def _state_gap(got, want):
@@ -1909,7 +1861,7 @@ K_PLAIN_MAX = {"x": 1e-6, "h": 1e-6, "d": INVARIANT_MAX}
 
 def _drive_rounds(name, algo, grad_fn, held, steps, batches, hook):
     """Rounds ``0 .. steps - 1`` of ``algo`` through the engine under the
-    timeline from ``held["state"]`` (taken out of ``held``: the caller
+    span recorder from ``held["state"]`` (taken out of ``held``: the caller
     keeps no other reference, so a round frees the state it replaces),
     each timed on the host clock. ``hook(r, state, batch)`` runs
     before round ``r`` and returns ``after(state)``, which returns the
@@ -1917,11 +1869,12 @@ def _drive_rounds(name, algo, grad_fn, held, steps, batches, hook):
     path's own checks). Each round: its line, the Lemma 2 residual (at
     most ``INVARIANT_MAX``) and a finite loss. Returns the last state and
     the round times."""
+    from repro_torch.utils import spans
+
     norm = lambda t: math.sqrt(float(t.double().pow(2).sum()))  # noqa: E731
     state = held.pop("state")
-    timeline = _Timeline()
-    undo = _instrument(timeline)
     times = []
+    spans.enable()
     try:
         for r in range(steps):
             bt = batches(r)
@@ -1931,20 +1884,22 @@ def _drive_rounds(name, algo, grad_fn, held, steps, batches, hook):
             state = algo.round(grad_fn, state, bt)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            timeline.close_round()
+            rec = spans.drain()
             loss, fields = after(state)
             d, x = state.inner.d.data, state.inner.x.data
             resid = norm(d.sum(0)) / (C * norm(x))
             emit({"phase": "train", "path": name, "round": r,
                   "round_s": times[-1], "loss": loss,
                   "sum_d_over_c_x": resid, **fields,
-                  "split_ms": {k: v for k, v in timeline.rounds[-1].items()
-                               if v}})
+                  "split_ms": {k: v for k, v in _split_ms(rec).items()
+                               if v},
+                  **_counts(rec)})
             check(resid <= INVARIANT_MAX,
                   f"{name} round {r}: Lemma 2 residual {resid}")
             check(math.isfinite(loss), f"{name} round {r}: loss {loss}")
     finally:
-        undo()
+        spans.disable()
+        spans.drain()
     return state, times
 
 
@@ -2831,6 +2786,7 @@ def _serve_path(name, spec):
     from repro_torch.kernels import library as L
     from repro_torch.launch import input_specs, serve
     from repro_torch.models import build_model
+    from repro_torch.utils import spans as recorder
     from repro_torch.utils.tree import tree_leaves
 
     changes = spec.get("changes", {})
@@ -2842,19 +2798,24 @@ def _serve_path(name, spec):
     n_params = sum(t.numel() for t in tree_leaves(params))
     prompt = input_specs.make_batch(cfg, spec["batch"], spec["prompt"],
                                     key=1, device="cuda")
-    timeline = _Timeline()
-    model.prefill = timeline.wrap(model.prefill, "prefill")
-    model.decode_step = timeline.wrap(model.decode_step, "decode")
+    model.prefill = recorder.spanned("prefill")(model.prefill)
+    model.decode_step = recorder.spanned("decode")(model.decode_step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     L.reset_launches()
+    recorder.enable()
     t0 = time.perf_counter()
-    tokens = serve.generate_tokens(model, params, prompt, gen_len=spec["gen"])
-    torch.cuda.synchronize()
+    try:
+        tokens = serve.generate_tokens(model, params, prompt,
+                                       gen_len=spec["gen"])
+        torch.cuda.synchronize()
+    finally:
+        recorder.disable()
     total_s = time.perf_counter() - t0
     launches = dict(L.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    spans = {k: [s.elapsed_time(e) for key, s, e in timeline.open if key == k]
+    drained = recorder.drain().spans
+    spans = {k: [s.ms for s in drained if s.name == k]
              for k in ("prefill", "decode")}
     del model.prefill, model.decode_step
     prefill_repeat = _prefill_ms(model, params, prompt)

@@ -38,6 +38,8 @@ from typing import Any
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.utils.spans import spanned
+
 __all__ = ["LANES", "Arena", "ArenaLayout", "adapt_state", "pack",
            "pack_rows", "unpack"]
 
@@ -162,6 +164,7 @@ def pack(tree, layout: ArenaLayout | None = None) -> Arena:
     return Arena(pack_rows(leaves, layout, lead=lead), layout)
 
 
+@spanned("pack")
 def pack_rows(leaves, layout: ArenaLayout, lead: int | None = None):
     """Pack a list of per-leaf tensors (layout order; model-shaped, or
     ``[lead, ...]``-stacked when ``lead`` is given) into a raw

@@ -68,6 +68,7 @@ from repro_torch.core.comm import (leaf_info_of, leaf_name, leaf_ref_index,
                                    quantize_bf16, reference_leaf_index,
                                    topk_sparsify)
 from repro_torch.kernels import ops as kops
+from repro_torch.utils.spans import span, spanned
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["AdaptivePlan", "Bf16", "Chain", "CompressionPlan", "Compressor",
@@ -125,6 +126,7 @@ def _pow2(e: torch.Tensor, dtype) -> torch.Tensor:
     return torch.where(e + bias >= 1, normal, sub)
 
 
+@spanned("scale")
 def arena_scale(a: torch.Tensor, layout: ar.ArenaLayout,
                 levels: int) -> torch.Tensor:
     """The per-leaf quantizer step ``max|leaf| / levels`` of a stacked
@@ -350,7 +352,8 @@ class StochasticQuant(Compressor):
         a = leaf.to(ct)
         scale = torch.amax(torch.abs(a)) / levels
         shape = tuple(a.shape) if self.per_client_dither else _coord_shape(a)
-        u = prng.uniform(key, shape, dtype=ct, device=a.device)
+        with span("dither"):
+            u = prng.uniform(key, shape, dtype=ct, device=a.device)
         if self.use_kernel:
             return kops.stochastic_quantize(a, u, scale, self.bits).to(
                 leaf.dtype)
@@ -358,6 +361,7 @@ class StochasticQuant(Compressor):
         q = torch.clamp(torch.floor(a * inv + u), -levels, levels)
         return (q * scale).to(leaf.dtype)
 
+    @spanned("dither")
     def arena_dither(self, key, layout: ar.ArenaLayout, lead: int, device):
         """The per-leaf dithers, drawn from the same ``fold_in(key, i)``
         enumeration as the per-leaf path at the same coordinate shapes and

@@ -108,6 +108,7 @@ from repro_torch.core.staleness import (DelayState, StalenessConfig,
                                         weighted_client_mean)
 from repro_torch.core.topology import parse_topology
 from repro_torch.utils.sharding_ctx import resolve_partial
+from repro_torch.utils.spans import span, spanned
 from repro_torch.utils.tree import tree_client_mean, tree_leaves, tree_map
 
 
@@ -179,6 +180,7 @@ def _per_client(a, n_clients: int) -> bool:
         and a.shape[0] == n_clients
 
 
+@spanned("gather")
 def gather_clients(tree, idx: torch.Tensor, n_clients: int):
     """The ``idx`` rows of every per-client leaf (leading ``n_clients``
     axis) of the client store; other leaves (the step counter, ``[1, ...]``
@@ -187,6 +189,7 @@ def gather_clients(tree, idx: torch.Tensor, n_clients: int):
                     tree)
 
 
+@spanned("scatter")
 def scatter_clients(store, rows, idx: torch.Tensor, n_clients: int):
     """Write the cohort ``rows`` back into the client ``store`` IN PLACE
     (``index_copy_`` on every per-client leaf: O(cohort) bytes, the
@@ -652,18 +655,20 @@ class RoundEngine:
 
     # ------------------------------------------------------------- plumbing
     def _grad(self, grad_fn: GradFn) -> GradFn:
-        gf = vmap_grads(grad_fn,
-                        spmd_axis_name=self.spmd_client_axes or None)
+        gf = spanned("grad")(vmap_grads(
+            grad_fn, spmd_axis_name=self.spmd_client_axes or None))
         if self.arena:
             base = gf
 
             # the model-apply boundary: the loss sees the real tree (views
             # of the arena), the engine sees the arena; the repack is the
-            # one copy per call.
+            # one copy per call (its span is pack_rows').
             def arena_gf(x, batch):
                 if not isinstance(x, ar.Arena):
                     return base(x, batch)
-                return ar.pack(base(ar.unpack(x), batch), x.layout)
+                with span("pack"):
+                    tree = ar.unpack(x)
+                return ar.pack(base(tree, batch), x.layout)
 
             gf = arena_gf
         if self.telemetry is None:
@@ -688,6 +693,7 @@ class RoundEngine:
         like = self.message_like(inner)
         return tuple(t.init_extra(like) for t in self.transforms)
 
+    @spanned("comm")
     def _comm_step(self, gf, inner, extras, batch, rctx, agg, step,
                    tstate=None, dstate=None, fresh=None, mask=None):
         """The single aggregating step: message -> transforms -> [delay
@@ -760,9 +766,10 @@ class RoundEngine:
         with the compression-error captures when ``rec``."""
         raw = msg
         new_extras = []
-        for t, e in zip(self.transforms, extras):
-            msg, e = t.apply(msg, e, step, self.x64)
-            new_extras.append(e)
+        with span("transmit"):
+            for t, e in zip(self.transforms, extras):
+                msg, e = t.apply(msg, e, step, self.x64)
+                new_extras.append(e)
         if rec and self.transforms:
             diff = tree_map(lambda a, b: a - b, msg, raw)
             tele.capture("compress_err", tele.mean_client_norm(diff))
@@ -883,6 +890,7 @@ class RoundEngine:
             dstate = DelayState(buf=tx, age=age)
         return self._wrap(inner, extras, tstate, dstate)
 
+    @spanned("round")
     def round(self, grad_fn: GradFn, state, batches):
         """One communication round: optional round-start exchange, tau-1
         local steps, one aggregating step. ``batches`` leaves have leading
@@ -925,7 +933,7 @@ class RoundEngine:
     def _local_steps(self, gf, inner, batches, rctx):
         """The tau-1 pure-local steps, muted as the reference's local
         ``lax.scan`` (``grad_norm`` is the aggregating step's)."""
-        with tele.muted():
+        with tele.muted(), span("local"):
             for k in range(self.tau - 1):
                 inner = self.local_step(gf, inner,
                                         tree_map(lambda b: b[k], batches),
@@ -1264,7 +1272,8 @@ def make_round_runner(algo, grad_fn: GradFn, *, metric_fn=None,
     def _metric(s, b):
         if metric_fn is None:
             return None
-        return metric_fn(s, b) if metric_with_batch else metric_fn(s)
+        with span("loss"):
+            return metric_fn(s, b) if metric_with_batch else metric_fn(s)
 
     def _round(s, b):
         if tel is None:

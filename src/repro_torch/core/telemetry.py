@@ -31,7 +31,15 @@ the round runs:
   time and WARNs (``rate_break``) when a contracting series stalls.
 * :class:`TraceSession` brackets a ``--trace-rounds a:b`` window with
   ``torch.profiler`` (CPU and CUDA activities) and writes a Chrome trace
-  under its ``out_dir``.
+  under its ``out_dir``; inside the window the span recorder is on, so
+  the trace names the round's layers (``repro_torch.round``, ``.grad``,
+  ``.dither``, ...).
+* :mod:`spans` (``repro_torch.utils.spans``, re-exported here) is the
+  same dynamic-scope idea for time: spans at the layer boundaries of a
+  round (``span``, ``spanned``), counters (``count``), on and off
+  (``enable``, ``disable``), and the records (``spans.drain()``); off by
+  default, where a span costs one bool check. Its docstring lists the
+  sites.
 
 Telemetry disabled (``algo.telemetry is None``) adds no operation: the
 engine guards every capture on the attached spec.
@@ -57,6 +65,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import log_histogram
+from repro_torch.utils import spans  # noqa: F401  (re-exported)
+from repro_torch.utils.spans import spanned
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 # ------------------------------------------------------------------ the tape
@@ -380,6 +390,7 @@ class Telemetry:
             return True
         return name in self.sketches
 
+    @spanned("telemetry")
     def finalize(self, tape: dict, algo, state) -> dict:
         """Tape + post-round state -> the round's metric dict of device
         tensors. Sketches read the post-round client store."""
@@ -830,13 +841,16 @@ class TraceSession:
     forces segment boundaries at the window edges (:meth:`boundaries`) and
     calls :meth:`maybe_start` before / :meth:`maybe_stop` after each
     segment; both return a ``profile`` event for the sinks when they act.
-    The stop waits for the card, then writes the Chrome trace to
-    ``out_dir/rounds_<a>-<b>.trace.json``."""
+    Inside the window the span recorder is on (where the caller had not
+    turned it on already; what it records there is dropped at the stop),
+    so the trace names the round's layers. The stop waits for the card,
+    then writes the Chrome trace to ``out_dir/rounds_<a>-<b>.trace.json``."""
 
     window: tuple[int, int] | None
     out_dir: str = "profile_trace"
     active: bool = False
     profile: Any = None
+    spans_on: bool = False
 
     def boundaries(self) -> tuple:
         """Round indices that must END a segment so the traced segment
@@ -857,6 +871,9 @@ class TraceSession:
         self.profile = torch.profiler.profile(activities=acts)
         self.profile.start()
         self.active = True
+        self.spans_on = not spans.enabled()
+        if self.spans_on:
+            spans.enable()
         return {"event": "profile", "action": "start_trace",
                 "round": first_round, "dir": self.out_dir}
 
@@ -872,6 +889,9 @@ class TraceSession:
             torch.cuda.synchronize()
         self.profile.stop()
         self.active = False
+        if self.spans_on:
+            spans.disable()
+            spans.drain()
         os.makedirs(self.out_dir, exist_ok=True)
         a, b = self.window
         self.profile.export_chrome_trace(

@@ -74,6 +74,7 @@ from repro_torch.core.compressors import auto_wrap
 from repro_torch.core.compressors import from_spec as compressor_from_spec
 from repro_torch.core.staleness import weighted_client_mean
 from repro_torch.kernels import ops as kops
+from repro_torch.utils.spans import spanned
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["Hierarchical", "Mixing", "Star", "TopoState", "Topology",
@@ -130,6 +131,7 @@ class Topology:
         advanced."""
         raise NotImplementedError
 
+    @spanned("topology")
     def reduce_and_advance(self, tree, w: torch.Tensor,
                            tstate: TopoState | None = None):
         """The aggregating step's entry point: reduce AND advance the
@@ -343,6 +345,7 @@ class Hierarchical(Topology):
             tstate.tier if tstate is not None else None)
         return TopoState(k=k + 1, tier=tier)
 
+    @spanned("topology")
     def reduce_and_advance(self, tree, w, tstate=None):
         out, mem = self._reduce_impl(tree, w, tstate)
         return out, self._advanced(tstate, mem)

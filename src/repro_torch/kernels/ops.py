@@ -58,6 +58,7 @@ from repro_torch.kernels import ref as R
 from repro_torch.kernels import ssd_intra as KS
 from repro_torch.kernels import telemetry_reduce as KT
 from repro_torch.utils.sharding_ctx import is_dtensor, resolve_partial
+from repro_torch.utils.spans import spanned
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -113,6 +114,7 @@ def _same(mesh_dim, pl) -> bool:
     return all(p == pl[0] for p in pl) and not pl[0].is_partial()
 
 
+@spanned("fedcet_v")
 def fedcet_v(x, g, d, alpha: float, impl: str = "auto"):
     """Fused FedCET local-step triad (see kernels/ref.py:fedcet_v).
     DTensors run shard-local under equal placements or raise."""
@@ -123,6 +125,7 @@ def fedcet_v(x, g, d, alpha: float, impl: str = "auto"):
     return _fedcet_v_op(x, g, d, alpha, kernel)
 
 
+@spanned("fedcet_comm")
 def fedcet_comm(d, m, m_bar, c: float, alpha: float, v=None,
                 impl: str = "auto"):
     """Fused FedCET aggregation pair (see kernels/ref.py:fedcet_comm).
@@ -155,6 +158,7 @@ def fedcet_comm(d, m, m_bar, c: float, alpha: float, v=None,
     return _local(op, "fedcet_comm", ops, allowed)
 
 
+@spanned("quantize")
 def stochastic_quantize(a, u, scale, bits: int, impl: str = "auto"):
     """Fused dithered-quantize round-trip over a stacked ``[C, ...]`` leaf
     (see kernels/ref.py:stochastic_quantize). ``u`` is the dither, of the
@@ -217,6 +221,7 @@ def _dither_shard(u, a):
     return u.contiguous()
 
 
+@spanned("quantize")
 def stochastic_quantize_rows(a, u, scale_rows, bits: int, impl: str = "auto"):
     """Row-scale dithered-quantize round-trip over the packed arena
     ``[C, rows, 1024]`` (see kernels/ref.py:stochastic_quantize_rows);
@@ -227,6 +232,7 @@ def stochastic_quantize_rows(a, u, scale_rows, bits: int, impl: str = "auto"):
     return R.stochastic_quantize_rows(a, u, scale_rows, bits)
 
 
+@spanned("round_tail")
 def fedcet_round_tail(v, h, d, u, scale, w, den, *, c: float, alpha: float,
                       beta: float, bits: int, impl: str = "auto"):
     """The fused shift-compressed FedCET round tail (see
@@ -245,6 +251,7 @@ def fedcet_round_tail(v, h, d, u, scale, w, den, *, c: float, alpha: float,
                                beta=beta, bits=bits)
 
 
+@spanned("gossip")
 def gossip_reduce(src, idx=None, wgt=None, denom=None, *, slots=None,
                   impl: str = "auto"):
     """The gossip neighbor reduce (see kernels/ref.py:gossip_reduce), in
@@ -275,6 +282,7 @@ def gossip_reduce(src, idx=None, wgt=None, denom=None, *, slots=None,
     return R.gossip_reduce(src, idx, wgt, denom)
 
 
+@spanned("sketch")
 def telemetry_sketch(data, *, bins: int, lo: float, hi: float, k: int,
                      impl: str = "auto"):
     """One-pass per-client distribution sketch over the client store (see
