@@ -60,7 +60,12 @@ of the JAX package. Phases, one JSON line each:
                torch.linalg.vector_norm (norms only) for the sketch,
                scaled_dot_product_attention (enable_gqa) for flash
                attention, the two batched torch.matmul products alone
-               (C B^T and W @ x, no mask or exp) for the SSD term;
+               (C B^T and W @ x, no mask or exp) for the SSD term; the
+               arena's packed dither (``threefry_uniform_rows``) bit for
+               bit at the granite-moe cell's layout ``[1|4, 270469,
+               1024]`` (client-shared and per-client, float32 and
+               float64) and at ragged leaves, its bound the write or its
+               busiest integer pipe (132 x 64 lanes x 1.98 GHz);
 4. quadratic — FedCET on the paper's §IV problem in float64 through the
                kernels: uncompressed (400 rounds), ``shift:q8`` on the
                arena through the fused tail and per leaf (both must reach
@@ -89,7 +94,11 @@ of the JAX package. Phases, one JSON line each:
                at N 1e3..1e5 (printed only);
 5. parity    — one FedCET round of the reduced model on the card and on
                the CPU from the same parameters and tokens;
-6. prng      — the threefry dither of the whole fedlm-100m model, timed;
+6. prng      — the arena's threefry dither of fedlm-100m and of the
+               granite-moe benchmark cell's layout (2 of 32 layers): the
+               packed kernel (``threefry_uniform_rows``, one launch) and
+               the eager per-leaf draw it replaced, timed, bitwise equal,
+               beside the write bound and the busiest integer pipe's;
 7. fig1      — the paper's Fig. 1 in float64 (``paper_fig1_algorithms``:
                FedCET, FedTrack, SCAFFOLD, FedAvg on the §IV problem, tau
                2, 300 rounds): e(k) at rounds 0/50/100/200/300, bytes per
@@ -125,20 +134,22 @@ of the JAX package. Phases, one JSON line each:
                quantized leaf per aggregation, no fedcet_round_tail (a plan
                is not ``Shifted(StochasticQuant)``); (L) B under ``rr:2``
                stragglers with the ``last`` policy: exactly fedcet_v 11,
-               stochastic_quantize_rows 6, fedcet_comm4 6 and no
-               fedcet_round_tail (a delayed aggregation never fuses), the
+               stochastic_quantize_rows 6, threefry_uniform_rows 6,
+               fedcet_comm4 6 and no fedcet_round_tail (a delayed
+               aggregation never fuses), the
                uplink billed at exactly half of B's bits; (K) a 16-client
                store at batch 4 with a ``block:4`` cohort, through the
-               engine: init (dense, 16 clients) exactly fedcet_v 1 and
-               fedcet_round_tail 1, the 5 rounds exactly fedcet_v 10,
-               stochastic_quantize_rows 5 and fedcet_comm4 5, each round
+               engine: init (dense, 16 clients) exactly fedcet_v 1,
+               fedcet_round_tail 1 and threefry_uniform_rows 1, the 5
+               rounds exactly fedcet_v 10, stochastic_quantize_rows 5,
+               threefry_uniform_rows 5 and fedcet_comm4 5, each round
                writing the store in place (the same ``data_ptr()``) and
                leaving the 12 other rows bitwise unchanged, its first
                round's cohort rows held against a plain 4-client engine
                on the same rows and tokens, with its gather and scatter
                timed and the peak GB; (M) B's scenario on mamba2-130m at
-               full width: exactly fedcet_v 11 and fedcet_round_tail 6,
-               no ssd_intra (the gradients take the plain SSD), and one
+               full width: exactly fedcet_v 11, fedcet_round_tail 6 and
+               threefry_uniform_rows 6, no ssd_intra (the gradients take the plain SSD), and one
                ``use_pallas_ssd`` forward at the training shape within
                2e-4 (rtol = atol) of the plain one; the remat check (one
                local step's ``vmap(grad)`` of 4 clients x 8 x 128 with the
@@ -150,7 +161,8 @@ of the JAX package. Phases, one JSON line each:
                of 38 and whisper-small whole (4 clients x 2 sequences of
                1500 frames + 64 tokens, rematerialized layer by layer as
                its config asks) through the engine under B's scenario, 3
-               rounds each: exactly fedcet_v 7 and fedcet_round_tail 4, the
+               rounds each: exactly fedcet_v 7, fedcet_round_tail 4 and
+               threefry_uniform_rows 4, the
                round-0 loss within 1e-5 of the CPU's, round 1 against a
                rerun on the plain kernels. Per round: loss, time,
                the Lemma 2 residual and where the time goes (gradients,
@@ -173,8 +185,8 @@ of the JAX package. Phases, one JSON line each:
                temporary directory; a fresh trainer that resumes from it
                and runs rounds 3-5 (checkpointing at 6): its final x, d
                and shift memory equal the straight run's bit for bit, and
-               so do its round-5 losses; exact launches of fedcet_v and
-               fedcet_round_tail in each run; segment times, the
+               so do its round-5 losses; exact launches of fedcet_v,
+               fedcet_round_tail and threefry_uniform_rows in each run; segment times, the
                checkpoints' bytes and save and restore seconds, peak GB.
                The directory needs ~10.3 GB of disk while round 6 is
                saved (two 5.1 GB files) and is removed. Then T-fedavg,
@@ -294,6 +306,22 @@ TF32_FLOPS = 495e12            # H100 SXM TF32, tensor cores, dense
 #: peak is TF32_FLOPS / 3 (one TF32 pass misses their gates); every other
 #: float32 form runs outside the tensor cores, at FP32_FLOPS
 TENSOR_CORE_F32 = ("flash_attention", "ssd_intra")
+#: 32-bit integer operations an H100 SXM executes a second on one pipe:
+#: 132 SMs x 64 lanes x 1.98 GHz, for the ALU pipe (SHF, LOP3, IADD3) and
+#: for IMAD on the FMA pipe alike (the SM issues 128 lanes a clock, so two
+#: pipes together can reach its issue rate, one alone half of it)
+INT_PIPE_OPS_PER_S = 132 * 64 * 1.98e9
+#: forms whose operations are 32-bit integer ones (their "flops" count
+#: the operations on their busiest pipe, timed at INT_PIPE_OPS_PER_S)
+INT_FORMS = ("threefry_uniform_rows",)
+#: operations a coordinate of ``threefry_uniform_rows`` (float32) takes on
+#: each pipe, from its SASS (SHF 101, LOP3 106, IADD3 58, IMAD 113 for the
+#: five inlined hashes: a thread's four chains and the leaf key, which a
+#: block recomputes only where its run of rows enters another leaf): one
+#: hash is 20 rounds of add, rotate and xor, 5 key injections and the
+#: key's first add, the adds split by the compiler between IADD3 and IMAD
+THREEFRY_ALU_OPS = 53
+THREEFRY_IMAD_OPS = 23
 MAIN_SHAPE = (4, 14, 640, 2560)  # fedlm-100m's largest stacked leaf (mlp)
 ARENA_SHAPE = (4, 104_499, 1024)  # fedlm-100m's stacked arena
 ALPHA, C = 3e-3, 0.05
@@ -323,6 +351,9 @@ KERNELS = {
     "flash_attention": ("flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:110"),
     "ssd_intra": ("ssd_intra.cu", "src/repro/kernels/ssd_intra.py:52"),
+    "threefry_uniform_rows": ("threefry.cu",
+                              "none: XLA fuses each jax.random.uniform, "
+                              "src/repro/core/compressors.py:388-395"),
 }
 SKETCH = dict(bins=48, lo=-12.0, hi=4.0, k=4)  # hist:48, the default topk
 
@@ -394,7 +425,9 @@ def device_ms(fn, iters=20, warmup=3) -> float:
 
 def bound(nbytes: float, flops: float, dtype,
           form: str | None = None) -> tuple[float, str]:
-    if dtype == torch.float32 and form in TENSOR_CORE_F32:
+    if form in INT_FORMS:
+        peak = INT_PIPE_OPS_PER_S
+    elif dtype == torch.float32 and form in TENSOR_CORE_F32:
         peak = TF32_FLOPS / 3
     else:
         peak = {torch.float64: FP64_FLOPS, torch.bfloat16: BF16_FLOPS}.get(
@@ -704,6 +737,68 @@ def _case_ssd(shape, dtype, seed, decay=1.0):
             lambda: (torch.matmul(cm, bt), torch.matmul(w, xh)))
 
 
+def _dither_layout(name: str):
+    """An arena layout from meta tensors, built once: ``fedlm-100m`` whole,
+    ``granite-moe-l2`` the granite-moe benchmark cell's (2 of 32 layers,
+    stacked, head tied: 276,959,232 coordinates, 270,469 rows), and
+    ``ragged`` leaves of 1, 1,023, 1,024, 1,025 and 100,003 coordinates and
+    a scalar, dicts in other than sorted key order (104 rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.arena import ArenaLayout
+    from repro_torch.models import build_model
+
+    if name not in _DITHER_LAYOUTS:
+        if name == "ragged":
+            def z(*shape):
+                return torch.empty(shape, device="meta")
+
+            tree = {"z": z(100_003), "m": [z(1), z(1023)],
+                    "b": {"y": z(1024), "x": z(5, 205)}, "a": z()}
+        else:
+            cfg = get_config("fedlm-100m") if name == "fedlm-100m" else (
+                dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                                    n_layers=2, tie_embeddings=True,
+                                    scan_layers=True))
+            tree = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                         device="meta")
+        _DITHER_LAYOUTS[name] = ArenaLayout.for_tree(tree)
+    return _DITHER_LAYOUTS[name]
+
+
+_DITHER_LAYOUTS: dict = {}
+
+
+def threefry_ops(n: int) -> int:
+    """Operations on ``threefry_uniform_rows``' busiest pipe for ``n``
+    coordinates (the ALU pipe: :data:`THREEFRY_ALU_OPS`)."""
+    return max(THREEFRY_ALU_OPS, THREEFRY_IMAD_OPS) * n
+
+
+def _case_threefry(shape, dtype, seed, layout="granite-moe-l2"):
+    """The packed dither ``[planes, rows, 1024]`` of a layout (planes 1:
+    the client-shared draw; more: the per-client one) through
+    ``ops.arena_uniform``, kernel against its plain version
+    (``ref.arena_uniform``, which ``_plain`` routes to), bit for bit; the
+    bound is the write or the busiest integer pipe."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+
+    lo = _dither_layout(layout)
+    planes, rows, lanes = shape
+    check(lo.rows == rows, f"threefry case: {layout} has {lo.rows} rows")
+    table, seg = lo.leaf_table("cuda"), lo.row_segments("cuda")
+    key = prng.fold_in(prng.key(2 ** 40 + seed), 5)
+    lead = None if planes == 1 else planes
+
+    def draw(impl):
+        return lambda: (ops.arena_uniform(key, table, seg, lead, dtype=dtype,
+                                          impl=impl),)
+
+    return (draw("kernel"), draw("ref"),
+            planes * rows * lanes * dtype.itemsize,
+            threefry_ops(planes * lo.num_params))
+
+
 #: labels of the cases timed (their first float32 case); "main" is the
 #: one the summary line reports.
 TIMED = ("main", "gossip_arena", "one_client_gossip_arena", "qwen3_prefill",
@@ -746,13 +841,24 @@ TOLERANCE = {"flash_attention": {torch.float32: 2e-5,
 #: the others' is rtol = atol, element by element.
 SCALED = ("ssd_intra",)
 #: launches and iterations of a timing (the plain flash version at the
-#: qwen3 shape takes ~0.45 s a call).
-TIMING = {"flash_attention": dict(iters=5, warmup=1)}
+#: qwen3 shape takes ~0.45 s a call, the plain dither at granite's layout
+#: some 0.3 s).
+TIMING = {"flash_attention": dict(iters=5, warmup=1),
+          "threefry_uniform_rows": dict(iters=5, warmup=1)}
 
 
 def _cases(form):
     """(label, shape, dtype, builder) cases of one kernel form."""
     f32, f64 = torch.float32, torch.float64
+    if form == "threefry_uniform_rows":  # shape: (planes, rows, 1024)
+        def ragged(sh, dt, i):
+            return _case_threefry(sh, dt, i, layout="ragged")
+
+        return [("main", (1, 270_469, 1024), f32, _case_threefry),
+                ("per_client", (4, 270_469, 1024), f32, _case_threefry),
+                ("main", (1, 270_469, 1024), f64, _case_threefry),
+                ("ragged", (1, 104, 1024), f32, ragged),
+                ("ragged", (3, 104, 1024), f64, ragged)]
     if form == "flash_attention":  # shape: (B, S, T, Hkv, G, D, mask...)
         bf16, f = torch.bfloat16, _case_flash
         return [("main", FLASH_FEDLM, f32, f),
@@ -1294,28 +1400,53 @@ def phase_parity():
 
 
 def phase_prng():
-    """The threefry dither of the whole fedlm-100m model (one uniform draw
-    per leaf at its shape, float32), as the compressed round draws it."""
-    from repro_torch.configs import get_config
+    """The arena's client-shared float32 dither as a compressed round draws
+    it (``StochasticQuant.arena_dither``) at fedlm-100m's and the granite
+    cell's layouts (``_dither_layout``):
+    the packed kernel (``threefry_uniform_rows``, one launch) beside the
+    eager per-leaf draw it replaced (``prng.uniform`` under each leaf's
+    ``fold_in``, then ``arena.pack_rows``), both timed with CUDA events and
+    held bitwise equal, with the bound of writing the arena and that of
+    the threefry's busiest integer pipe."""
+    from torch.utils import _pytree as pytree
+
     from repro_torch.core import prng
-    from repro_torch.models import build_model
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.core.arena import LANES, pack_rows
+    from repro_torch.core.comm import reference_leaf_index
+    from repro_torch.core.compressors import StochasticQuant
+    from repro_torch.kernels import library as L
 
-    params = build_model(get_config("fedlm-100m")).init(
-        torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    shapes = [tuple(t.shape) for t in tree_leaves(params)]
-    key = prng.key(0)
+    key = prng.fold_in(prng.key(0), 5)
+    quant = StochasticQuant(8)
+    for name in ("fedlm-100m", "granite-moe-l2"):
+        layout = _dither_layout(name)
+        index = reference_leaf_index(pytree.tree_unflatten(
+            [0] * len(layout.shapes), layout.treedef))
 
-    def draw():
-        return [prng.uniform(prng.fold_in(key, i), s, torch.float32,
-                             device="cuda") for i, s in enumerate(shapes)]
+        def eager(layout=layout, index=index):
+            return pack_rows([prng.uniform(prng.fold_in(key, i), s,
+                                           torch.float32, device="cuda")
+                              for i, s in zip(index, layout.shapes)], layout)
 
-    ms = time_ms(draw, iters=3, warmup=1)
-    n = sum(math.prod(s) for s in shapes)
-    emit({"phase": "prng", "what": "per-leaf uniform dither, float32",
-          "leaves": len(shapes), "elements": n, "ms": ms,
-          "write_bound_ms": 1e3 * 4 * n / HBM_BYTES_PER_S})
-    del params
+        def kernel(layout=layout):
+            return quant.arena_dither(key, layout, 4, "cuda")
+
+        before = L.LAUNCHES["threefry_uniform_rows"]
+        equal = torch.equal(kernel(), eager())
+        launches = L.LAUNCHES["threefry_uniform_rows"] - before
+        ms, eager_ms = time_ms(kernel), time_ms(eager, iters=3, warmup=1)
+        n = layout.num_params
+        emit({"phase": "prng", "layout": name,
+              "what": "arena dither, float32, client-shared",
+              "leaves": len(layout.shapes), "elements": n,
+              "rows": layout.rows, "ms": ms, "eager_ms": eager_ms,
+              "bitwise_equal": equal, "launches_per_draw": launches,
+              "write_bound_ms": 1e3 * 4 * layout.rows * LANES
+              / HBM_BYTES_PER_S,
+              "int_pipe_bound_ms": 1e3 * threefry_ops(n)
+              / INT_PIPE_OPS_PER_S})
+        check(equal, f"prng {name}: the packed dither is not the eager one")
+        check(launches == 1, f"prng {name}: {launches} launches a draw")
     torch.cuda.empty_cache()
 
 
@@ -1409,8 +1540,10 @@ PATHS[MAMBA_PATH] = ({"compression": "shift:q8", "arena": True},
 COMPARED = ("E_ring_sparse_arena", "F_ring_dense_arena",
             "E2_ring_sparse_arena_repeat", TELEMETRY_PATH)
 _E_LAUNCHES = {"fedcet_v": 11, "fedcet_comm": 6, "gossip_reduce": 6}
+#: each aggregation over the arena draws its dither in one packed launch
 MAIN_PATH_LAUNCHES = {"B_shift_q8_arena": {"fedcet_v": 11,
-                                           "fedcet_round_tail": 6},
+                                           "fedcet_round_tail": 6,
+                                           "threefry_uniform_rows": 6},
                       "E_ring_sparse_arena": _E_LAUNCHES,
                       "E2_ring_sparse_arena_repeat": _E_LAUNCHES,
                       # 5 rounds x (the d_norm and drift sketches).
@@ -1418,8 +1551,10 @@ MAIN_PATH_LAUNCHES = {"B_shift_q8_arena": {"fedcet_v": 11,
                                        "telemetry_sketch": 10},
                       DELAY_PATH: {"fedcet_v": 11,
                                    "stochastic_quantize_rows": 6,
+                                   "threefry_uniform_rows": 6,
                                    "fedcet_comm4": 6},
-                      MAMBA_PATH: {"fedcet_v": 11, "fedcet_round_tail": 6}}
+                      MAMBA_PATH: {"fedcet_v": 11, "fedcet_round_tail": 6,
+                                   "threefry_uniform_rows": 6}}
 
 
 def _allocated_plan(params, **allocate_kw):
@@ -1846,10 +1981,12 @@ COHORT_RUN = dict(n_clients=16, cohort="block:4", batch=4, seq_len=128,
 #: on the arena with no delay or topology, so the reference's guard lets
 #: FedCET's fused tail take its aggregation; the 5 cohort rounds never
 #: do (a cohort round has its own phase B): per round the triad twice on
-#: the 4 gathered rows, one rows quantize and one 4-op pair.
-K_INIT_LAUNCHES = {"fedcet_v": 1, "fedcet_round_tail": 1}
+#: the 4 gathered rows, one rows quantize (and its dither) and one 4-op
+#: pair.
+K_INIT_LAUNCHES = {"fedcet_v": 1, "fedcet_round_tail": 1,
+                   "threefry_uniform_rows": 1}
 K_ROUND_LAUNCHES = {"fedcet_v": 10, "stochastic_quantize_rows": 5,
-                    "fedcet_comm4": 5}
+                    "threefry_uniform_rows": 5, "fedcet_comm4": 5}
 #: K's first round against a plain 4-client engine on the cohort's rows
 #: and tokens (gathered here, not by the engine): phase A runs the same
 #: code at the same shapes, phase B the fused tail instead of the rows
@@ -2063,15 +2200,17 @@ FAMILY_PATHS = {
                              seq_len=64),
 }
 FAMILY_RUN = dict(n_clients=4, tau=2, steps=3)
-#: init (1 triad, 1 tail), then 2 triads and 1 tail a round, as on B
+#: init (1 triad, 1 tail, its dither), then 2 triads and 1 tail with its
+#: dither a round, as on B
 FAMILY_LAUNCHES = {"fedcet_v": 1 + 2 * FAMILY_RUN["steps"],
-                   "fedcet_round_tail": 1 + FAMILY_RUN["steps"]}
+                   "fedcet_round_tail": 1 + FAMILY_RUN["steps"],
+                   "threefry_uniform_rows": 1 + FAMILY_RUN["steps"]}
 FAMILY_LOSS_RTOL = 1e-5  # the card's round-0 loss against the CPU port's
 #: the forms ``_plain`` routes to their plain versions for the rerun
 OPS_FORMS = ("fedcet_v", "fedcet_comm", "stochastic_quantize",
              "stochastic_quantize_rows", "fedcet_round_tail",
              "gossip_reduce", "telemetry_sketch", "flash_attention",
-             "ssd_intra")
+             "ssd_intra", "arena_uniform")
 
 
 def _host(tree):
@@ -2433,10 +2572,12 @@ def phase_fig1():
 
 #: trainer paths: fedlm-100m at full width through ``FedTrainer``.
 TRAINER = dict(n_clients=4, batch=8, seq_len=128, tau=2)
-#: T's kernel launches per run: init (one v, one tail) + 2 v and 1 tail
-#: a round.
-T_LAUNCHES = {6: {"fedcet_v": 13, "fedcet_round_tail": 7},
-              3: {"fedcet_v": 7, "fedcet_round_tail": 4}}
+#: T's kernel launches per run: init (one v, one tail and its dither) + 2
+#: v and 1 tail with its dither a round.
+T_LAUNCHES = {6: {"fedcet_v": 13, "fedcet_round_tail": 7,
+                  "threefry_uniform_rows": 7},
+              3: {"fedcet_v": 7, "fedcet_round_tail": 4,
+                  "threefry_uniform_rows": 4}}
 LOSS_KEYS = ("loss_global", "loss_local_mean", "heterogeneity_gap")
 
 
@@ -3450,7 +3591,8 @@ OWNER = {"fedcet_v": "B_shift_q8_arena", "fedcet_comm": "A_dense",
          "gossip_reduce": "E_ring_sparse_arena",
          "telemetry_sketch": TELEMETRY_PATH,
          "flash_attention": "S1_fedlm_100m",
-         "ssd_intra": "S3_mamba2_130m"}
+         "ssd_intra": "S3_mamba2_130m",
+         "threefry_uniform_rows": "B_shift_q8_arena"}
 
 
 def main() -> int:

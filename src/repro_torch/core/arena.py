@@ -32,19 +32,19 @@ the buffer, not copies.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any
 
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core.comm import reference_leaf_index
+from repro_torch.kernels.threefry import LANES
 from repro_torch.utils.spans import spanned
 
 __all__ = ["LANES", "Arena", "ArenaLayout", "adapt_state", "pack",
            "pack_rows", "unpack"]
-
-#: lane width of one arena row.
-LANES = 1024
 
 
 def _rows_of(shape: tuple) -> int:
@@ -59,9 +59,12 @@ class ArenaLayout:
     shapes: tuple  # per-leaf MODEL shapes (no client axis), flatten order
     dtype: torch.dtype  # the single float dtype every leaf shares
     rows_per_leaf: tuple
-    #: per-device row->leaf maps (filled by :meth:`row_segments`).
+    #: per-device row->leaf maps and leaf tables (filled by
+    #: :meth:`row_segments` and :meth:`leaf_table`).
     _segments: dict = dataclasses.field(default_factory=dict, compare=False,
                                         repr=False)
+    _tables: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
 
     @classmethod
     def for_tree(cls, tree) -> "ArenaLayout":
@@ -111,6 +114,25 @@ class ArenaLayout:
                 torch.tensor(self.rows_per_leaf)).to(device)
             self._segments[device] = seg
         return seg
+
+    def leaf_table(self, device=None) -> torch.Tensor:
+        """Per leaf in layout order, ``(first row, element count, index in
+        the reference's flatten order)`` as int64 ``[leaves, 3]``: with
+        :meth:`row_segments`, what the packed dither draw
+        (``kernels/ops.py:arena_uniform``) reads besides the round key. The
+        third column is the ``i`` of each leaf's ``fold_in(key, i)``
+        (``core/comm.py:reference_leaf_index``). Built once per device and
+        kept, as :meth:`row_segments` is."""
+        device = torch.device("cpu" if device is None else device)
+        table = self._tables.get(device)
+        if table is None:
+            starts = itertools.accumulate(self.rows_per_leaf[:-1], initial=0)
+            index = reference_leaf_index(pytree.tree_unflatten(
+                [0] * len(self.shapes), self.treedef))
+            table = torch.tensor(list(zip(starts, self.leaf_sizes(), index)),
+                                 dtype=torch.int64).to(device)
+            self._tables[device] = table
+        return table
 
 
 class Arena:

@@ -365,15 +365,12 @@ class StochasticQuant(Compressor):
     def arena_dither(self, key, layout: ar.ArenaLayout, lead: int, device):
         """The per-leaf dithers, drawn from the same ``fold_in(key, i)``
         enumeration as the per-leaf path at the same coordinate shapes and
-        packed next to the data (pad dither 0 keeps pads at exactly 0)."""
-        shapes = [((lead,) + s if self.per_client_dither else s)
-                  for s in layout.shapes]
-        index = reference_leaf_index(pytree.tree_unflatten(
-            [0] * len(shapes), layout.treedef))
-        u = [prng.uniform(prng.fold_in(key, index[i]), s, dtype=layout.dtype,
-                          device=device) for i, s in enumerate(shapes)]
-        return ar.pack_rows(u, layout,
-                            lead=lead if self.per_client_dither else None)
+        packed next to the data (pad dither 0 keeps pads at exactly 0), in
+        one pass over the arena (``kernels/ops.py:arena_uniform``: one
+        kernel launch on the card)."""
+        return kops.arena_uniform(
+            key, layout.leaf_table(device), layout.row_segments(device),
+            lead if self.per_client_dither else None, dtype=layout.dtype)
 
     def apply_arena(self, key, msg, extra):
         """Native packed-rows quantization: ONE launch for the whole tree.

@@ -146,12 +146,19 @@ def uniform(k: Key, shape=(), dtype=None, device=None) -> torch.Tensor:
     None is the key's float dtype."""
     shape = tuple(shape)
     dtype = dtype or float_dtype(k)
+    hi, lo = _counters(shape, device)
+    return uniform_of_words(*threefry2x32(k[0], k[1], hi, lo),
+                            dtype).reshape(shape)
+
+
+def uniform_of_words(b1: torch.Tensor, b2: torch.Tensor,
+                     dtype) -> torch.Tensor:
+    """``uniform``'s float on ``[0, 1)`` from the hash words ``(b1, b2)``
+    of each counter (int64 tensors holding 32-bit words)."""
     if dtype == torch.float32:
-        bits = random_bits(k, 32, shape, device)
-        fbits = (bits >> 9) | 0x3F800000          # 23 mantissa bits, 1.0
+        fbits = ((b1 ^ b2) >> 9) | 0x3F800000     # 23 mantissa bits, 1.0
         return fbits.to(torch.int32).view(torch.float32) - 1.0
     if dtype == torch.float64:
-        b1, b2 = random_bits(k, 64, shape, device)
         # the 64-bit draw >> 12, OR'd into 1.0's bits 0x3FF0000000000000
         fbits = (b1 << 20) | (b2 >> 12) | 0x3FF0000000000000
         return fbits.view(torch.float64) - 1.0

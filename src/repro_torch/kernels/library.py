@@ -10,7 +10,8 @@ them rebuilds it. Nothing is built or loaded at import time.
 
 Each kernel wrapper (``kernels/fedcet_update.py``, ``kernels/quantize.py``,
 ``kernels/gossip_reduce.py``, ``kernels/telemetry_reduce.py``,
-``kernels/flash_attention.py``, ``kernels/ssd_intra.py``) checks device,
+``kernels/flash_attention.py``, ``kernels/ssd_intra.py``,
+``kernels/threefry.py``) checks device,
 dtype, contiguity and shape, allocates its outputs with ``torch.empty``,
 launches on PyTorch's current stream, raises if the launch reports an
 error, and adds one to its entry of :data:`LAUNCHES`.
@@ -43,12 +44,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"fedcet_v": 0, "fedcet_comm": 0, "fedcet_comm4": 0,
             "stochastic_quantize": 0, "stochastic_quantize_rows": 0,
             "fedcet_round_tail": 0, "gossip_reduce": 0,
-            "telemetry_sketch": 0, "flash_attention": 0, "ssd_intra": 0}
+            "telemetry_sketch": 0, "flash_attention": 0, "ssd_intra": 0,
+            "threefry_uniform_rows": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
 
 _ptr, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_u32 = ctypes.c_uint32
 #: C entry points: name -> argtypes, with "T" for the float of the suffix.
 _SIGNATURES = {
     "fedcet_v": [_ptr] * 4 + ["T", _i64, _i32, _ptr],
@@ -62,6 +65,7 @@ _SIGNATURES = {
                                       _ptr],
     "flash_attention": [_ptr] * 4 + [_i64] * 3 + [_i32] * 6 + [_ptr],
     "ssd_intra": [_ptr] * 6 + [_i64] + [_i32] * 5 + [_ptr],
+    "threefry_uniform_rows": [_ptr] * 3 + [_u32, _u32, _i64, _i64, _ptr],
 }
 #: the float types each entry point is built for (default: f32 and f64).
 _BUILT_FOR = {"flash_attention": ("f32", "bf16"),

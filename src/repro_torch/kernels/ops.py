@@ -2,7 +2,8 @@
 ``src/repro/kernels/ops.py``: ``fedcet_v``, ``fedcet_comm``,
 ``stochastic_quantize``, ``stochastic_quantize_rows``,
 ``fedcet_round_tail``, ``gossip_reduce``, ``telemetry_sketch``,
-``flash_attention`` and ``ssd_intra``).
+``flash_attention`` and ``ssd_intra``), and ``arena_uniform``, the packed
+arena's dither, which no TPU kernel had.
 
 ``impl`` selects the implementation:
 
@@ -57,6 +58,7 @@ from repro_torch.kernels import quantize as KQ
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import ssd_intra as KS
 from repro_torch.kernels import telemetry_reduce as KT
+from repro_torch.kernels import threefry as KR
 from repro_torch.utils.sharding_ctx import is_dtensor, resolve_partial
 from repro_torch.utils.spans import spanned
 
@@ -249,6 +251,24 @@ def fedcet_round_tail(v, h, d, u, scale, w, den, *, c: float, alpha: float,
                                    alpha=alpha, beta=beta, bits=bits)
     return R.fedcet_round_tail(v, h, d, u, scale, w, den, c=c, alpha=alpha,
                                beta=beta, bits=bits)
+
+
+def arena_uniform(key, table, row_leaf, lead=None, *, dtype,
+                  impl: str = "auto"):
+    """The packed arena's dither in one pass (see kernels/threefry.py;
+    plain version: kernels/ref.py:arena_uniform): every leaf's
+    ``prng.uniform(prng.fold_in(key, i), shape, dtype)`` (``(lead,) +
+    shape`` for a per-client dither), ``i`` its reference index, laid into
+    the leaf's rows with zero pads. ``table`` is ``ArenaLayout.leaf_table``
+    and ``row_leaf`` ``ArenaLayout.row_segments`` on the draw's device.
+    Returns ``[rows, LANES]``, or ``[lead, rows, LANES]`` when ``lead`` is
+    given. The CUDA kernel takes float32 and float64."""
+    planes = 1 if lead is None else lead
+    if _use_kernel(impl, table):
+        out = KR.threefry_uniform_rows(key, table, row_leaf, planes, dtype)
+    else:
+        out = R.arena_uniform(key, table, row_leaf, planes, dtype)
+    return out[0] if lead is None else out
 
 
 @spanned("gossip")

@@ -11,6 +11,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.threefry import LANES
+
 #: threads per block of the client sketch (``csrc/telemetry_reduce.cu``)
 #: and the block count it aims for over all clients.
 SKETCH_THREADS = 256
@@ -116,6 +118,43 @@ def stochastic_quantize_rows(a, u, scale_rows, bits: int):
     """The row-scale form over the packed arena ``[..., rows, lanes]``:
     ``scale_rows`` holds one step per row."""
     return stochastic_quantize(a, u, scale_rows.reshape(-1, 1), bits)
+
+
+#: arena rows a plain dither draw (:func:`arena_uniform`) hashes at once:
+#: 16 Mi coordinates, ~1 GB of int64 temporaries
+ARENA_UNIFORM_ROWS = 16384
+
+
+def arena_uniform(key, table, row_leaf, planes: int, dtype):
+    """The packed arena's dither ``[planes, rows, LANES]`` (plain version
+    of ``kernels/threefry.py``): per leaf of ``table`` (int64 ``[leaves,
+    3]``: first row, element count ``n``, reference index ``i``) the draw
+    ``prng.uniform(fold_in(key, i), (planes,) + shape, dtype)`` laid into
+    the leaf's rows of each plane, its pads 0; ``row_leaf`` maps each row
+    to its leaf. One threefry over whole blocks of rows, each coordinate
+    hashing its leaf's key and its row-major index in the leaf's draw."""
+    from repro_torch.core import prng  # core imports this module
+
+    dev = table.device
+    first, numel, index = table.unbind(1)
+    lk0, lk1 = prng.threefry2x32(key[0], key[1], torch.zeros_like(index),
+                                 index & prng.MASK32)
+    rows = row_leaf.shape[0]
+    out = torch.empty((planes, rows, LANES), dtype=dtype, device=dev)
+    lane = torch.arange(LANES, device=dev)
+    for r0 in range(0, rows, ARENA_UNIFORM_ROWS):
+        leaf = row_leaf[r0:r0 + ARENA_UNIFORM_ROWS]
+        r1 = r0 + leaf.shape[0]
+        row = torch.arange(r0, r1, device=dev)
+        within = ((row - first[leaf]) * LANES)[:, None] + lane
+        n = numel[leaf][:, None]
+        k0, k1 = lk0[leaf][:, None], lk1[leaf][:, None]
+        for c in range(planes):
+            local = c * n + within
+            u = prng.uniform_of_words(*prng.threefry2x32(
+                k0, k1, local >> 32, local & prng.MASK32), dtype)
+            out[c, r0:r1] = torch.where(within < n, u, 0.0)
+    return out
 
 
 def topk_mask(x, k: int):

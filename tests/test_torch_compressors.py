@@ -185,6 +185,70 @@ def test_dithers_follow_the_reference_leaf_order(spec):
         == [5, 2, 1, 4, 3, 0]
 
 
+def _eager_arena_dither(key, layout, lead, per_client):
+    """The arena's dither as the port drew it before the packed draw: one
+    ``prng.uniform`` per leaf under ``fold_in(key, i)``, ``i`` the leaf's
+    reference index, at its (client-stacked) shape, then ``pack_rows``."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core.arena import pack_rows
+
+    shapes = [((lead,) + s if per_client else s) for s in layout.shapes]
+    index = C.reference_leaf_index(pytree.tree_unflatten(
+        [0] * len(shapes), layout.treedef))
+    u = [prng.uniform(prng.fold_in(key, index[i]), s, dtype=layout.dtype)
+         for i, s in enumerate(shapes)]
+    return pack_rows(u, layout, lead=lead if per_client else None)
+
+
+def _dither_tree(dtype):
+    """Leaves of 1, 1,023, 1,024, 1,025 and 100,003 coordinates (and a
+    scalar), dicts in other than sorted key order."""
+    return {"z": torch.zeros(100_003, dtype=dtype),
+            "m": [torch.zeros(1, dtype=dtype), torch.zeros(1023, dtype=dtype)],
+            "b": {"y": torch.zeros(1024, dtype=dtype),
+                  "x": torch.zeros(5, 205, dtype=dtype)},
+            "a": torch.zeros((), dtype=dtype)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("per_client", [False, True])
+@pytest.mark.parametrize("seed", [0, 2**40 + 3])
+@pytest.mark.parametrize("block_rows", [None, 7])
+def test_packed_dither_equals_the_per_leaf_draws(dtype, per_client, seed,
+                                                 block_rows, monkeypatch):
+    """``arena_dither``'s one pass over the arena (on the CPU the plain
+    version of ``kernels/ops.py:arena_uniform``, also in blocks of 7 rows
+    that cut leaves) is ``torch.equal`` to the per-leaf draws packed, pads
+    0, and keys each leaf by its reference index."""
+    from repro_torch.core.arena import LANES, ArenaLayout
+    from repro_torch.kernels import library as L
+    from repro_torch.kernels import ref
+
+    if block_rows is not None:
+        monkeypatch.setattr(ref, "ARENA_UNIFORM_ROWS", block_rows)
+    layout = ArenaLayout.for_tree(_dither_tree(dtype))
+    key = prng.fold_in(prng.key(seed), 11)
+    lead = 3
+    before = L.LAUNCHES["threefry_uniform_rows"]
+    got = C.StochasticQuant(8, per_client_dither=per_client).arena_dither(
+        key, layout, lead, "cpu")
+    assert L.LAUNCHES["threefry_uniform_rows"] == before
+    want = _eager_arena_dither(key, layout, lead, per_client)
+    assert got.dtype == dtype
+    assert got.shape == ((lead,) if per_client else ()) + (layout.rows,
+                                                          LANES)
+    assert torch.equal(got, want)
+    first, numel, index = layout.leaf_table().unbind(1)
+    assert index.tolist() == [5, 3, 4, 2, 1, 0]  # z, m[0], m[1], b/y, b/x, a
+    flat = got.reshape(-1, layout.rows * LANES)
+    for r0, n in zip(first.tolist(), numel.tolist()):
+        span = flat[:, r0 * LANES:]
+        rows = -(-n // LANES) if n else 1
+        assert not span[:, n:rows * LANES].any()        # pads are 0
+        assert bool((span[:, :n] >= 0).all() and (span[:, :n] < 1).all())
+
+
 def test_kernel_switch_agrees_on_the_cpu():
     key = prng.key(1)
     leaf = torch.tensor(_msg(4)["big"])

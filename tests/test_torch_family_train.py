@@ -3,7 +3,8 @@ card's kernels (``@pytest.mark.cuda``: each skips where CUDA is not
 available). Reduced granite-moe, zamba2 and whisper under B's scenario
 (``shift:q8`` + arena), 4 clients, tau 2, seed-0 weights, batches from
 ``launch/input_specs.make_batch``: the init and the round launch the triad
-3 times and the fused round tail twice, and x, d and the shift memory
+3 times and the fused round tail and the packed dither twice each, and
+x, d and the shift memory
 equal the same init and round with every kernel routed to its plain
 version (``impl="ref"``) within ``chip_smoke.py``'s ``K_PLAIN_MAX`` (x and
 h 1e-6 of their norms, d 1e-5 of ``c ||x||``). Against the reference on
@@ -33,7 +34,7 @@ def _round(model, cfg, params, batches, plain):
     algo = FedScenario(compression="shift:q8", arena=True).apply(
         FedCET(alpha=ALPHA, c=CW, tau=TAU, n_clients=NC, x64=False))
     grad = torch.func.grad(model.loss)
-    forms = ("fedcet_v", "fedcet_round_tail")
+    forms = ("fedcet_v", "fedcet_round_tail", "arena_uniform")
     real = {k: getattr(ops, k) for k in forms}
     if plain:
         for k, fn in real.items():
@@ -68,7 +69,8 @@ def test_cuda_fedcet_round_through_the_kernels_matches_plain(name):
     L.reset_launches()
     got = _round(model, cfg, params, batches, plain=False)
     launches = {k: v for k, v in L.LAUNCHES.items() if v}
-    assert launches == {"fedcet_v": 3, "fedcet_round_tail": 2}, launches
+    assert launches == {"fedcet_v": 3, "fedcet_round_tail": 2,
+                        "threefry_uniform_rows": 2}, launches
     L.reset_launches()
     want = _round(model, cfg, params, batches, plain=True)
     assert not any(L.LAUNCHES.values()), dict(L.LAUNCHES)

@@ -5,7 +5,9 @@ reduce (its CPU tests against the JAX package are in
 ``tests/test_torch_gossip.py``), the telemetry client sketch (its CPU
 tests in ``tests/test_torch_telemetry_dist.py``), flash attention (its
 CPU tests in ``tests/test_torch_attention.py``) and the Mamba2 SSD
-intra-chunk term (its CPU tests in ``tests/test_torch_mamba2.py``).
+intra-chunk term (its CPU tests in ``tests/test_torch_mamba2.py``), and
+the arena's packed threefry dither (its CPU tests in
+``tests/test_torch_compressors.py``).
 
 CPU tests: the port's ``ops``/``ref`` (plain versions on a CPU tensor)
 against JAX's ``ref`` and JAX's ``ops`` with ``impl="kernel"`` (the Pallas
@@ -33,7 +35,9 @@ products in float32 and rounds once as its plain version does, and is
 held at the reference's
 sweep shapes to 1e-4 in float32 and 1e-2 (a few bfloat16 ulps) in
 bfloat16, elsewhere to 1e-4 of the output's scale (1e-2 in bfloat16),
-and to its own repeat bit for bit. These tests
+and to its own repeat bit for bit; the packed dither is ``torch.equal``
+to the eager per-leaf draws it replaces, at the granite-moe cell's whole
+layout too, one launch a draw. These tests
 import no JAX, so they also run where JAX is not installed
 (``pytest --noconftest -m cuda``).
 """
@@ -169,12 +173,19 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ssd = (xs, xs[..., 0].abs(), -xs[..., 0].abs().cumsum(2), xs[:, :, :, 0],
            xs[:, :, :, 0])
     assert torch.equal(ops.ssd_intra(*ssd), ref.ssd_intra(*ssd))
+    from repro_torch.core import prng
+    from repro_torch.core.arena import ArenaLayout
+
+    layout = ArenaLayout.for_tree({"w": x, "b": g[0]})
+    args = (prng.key(4), layout.leaf_table(), layout.row_segments(), 2)
+    assert torch.equal(ops.arena_uniform(*args, dtype=x.dtype),
+                       ref.arena_uniform(*args, x.dtype))
     assert set(K.LAUNCHES) == {"fedcet_v", "fedcet_comm", "fedcet_comm4",
                                "stochastic_quantize",
                                "stochastic_quantize_rows",
                                "fedcet_round_tail", "gossip_reduce",
                                "telemetry_sketch", "flash_attention",
-                               "ssd_intra"}
+                               "ssd_intra", "threefry_uniform_rows"}
     assert not any(K.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.fedcet_v(x, g, d, ALPHA, impl="kernel")
@@ -874,3 +885,111 @@ def test_cuda_ssd_intra_refuses_autograd_and_what_it_does_not_take():
     big = _ssd_inputs((1, 1, 129, 1, 4, 4), torch.float32)
     with pytest.raises(ValueError, match="Lc <= 128"):
         ops.ssd_intra(*big)
+
+
+# --------------------------------------------------------- the arena's dither
+def _eager_arena_dither(key, layout, lead, per_client, device):
+    """The arena's dither as the port drew it before the packed kernel: one
+    eager ``prng.uniform`` per leaf under ``fold_in(key, i)``, ``i`` the
+    leaf's reference index, then ``arena.pack_rows``."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import prng
+    from repro_torch.core.arena import pack_rows
+    from repro_torch.core.comm import reference_leaf_index
+
+    shapes = [((lead,) + s if per_client else s) for s in layout.shapes]
+    index = reference_leaf_index(pytree.tree_unflatten([0] * len(shapes),
+                                                        layout.treedef))
+    u = [prng.uniform(prng.fold_in(key, index[i]), s, dtype=layout.dtype,
+                      device=device) for i, s in enumerate(shapes)]
+    return pack_rows(u, layout, lead=lead if per_client else None)
+
+
+def _dither_layout(case, dtype):
+    """An arena layout from meta tensors: ``small`` has leaves of 1, 1,023,
+    1,024, 1,025 and 100,003 coordinates and a scalar, dicts in other than
+    sorted key order; ``big`` a leaf of 2**24 + 5 coordinates between two
+    small ones."""
+    from repro_torch.core.arena import ArenaLayout
+
+    def z(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    tree = ({"z": z(100_003), "m": [z(1), z(1023)],
+             "b": {"y": z(1024), "x": z(5, 205)}, "a": z()}
+            if case == "small" else
+            {"t": z(7), "big": z(2 ** 24 + 5), "a": z(3, 3)})
+    return ArenaLayout.for_tree(tree)
+
+
+def _granite_cell_layout():
+    """The arena layout of the benchmark's granite-moe cell: 2 of 32
+    layers, stacked, head tied to the embedding (276,959,232 float32
+    coordinates), from meta tensors."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.arena import ArenaLayout
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), n_layers=2,
+                              tie_embeddings=True, scan_layers=True)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   device="meta")
+    return ArenaLayout.for_tree(params)
+
+
+def _check_packed_dither(layout, per_client, key, lead=4):
+    from repro_torch.core.compressors import StochasticQuant
+
+    quant = StochasticQuant(8, per_client_dither=per_client)
+    before = K.LAUNCHES["threefry_uniform_rows"]
+    got = quant.arena_dither(key, layout, lead, "cuda")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["threefry_uniform_rows"] == before + 1
+    want = _eager_arena_dither(key, layout, lead, per_client, "cuda")
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("per_client", [False, True])
+@pytest.mark.parametrize("case", ["small", "big"])
+def test_cuda_arena_dither_equals_the_eager_draw(dtype, per_client, case):
+    _need_cuda()
+    from repro_torch.core import prng
+
+    layout = _dither_layout(case, dtype)
+    for key in (prng.key(3), prng.fold_in(prng.key(2 ** 40 + 3), 11)):
+        _check_packed_dither(layout, per_client, key)
+
+
+@pytest.mark.cuda
+def test_cuda_arena_dither_at_the_granite_cell_layout():
+    _need_cuda()
+    from repro_torch.core import prng
+    from repro_torch.core.engine import compression_key
+
+    layout = _granite_cell_layout()
+    assert layout.num_params == 276_959_232
+    _check_packed_dither(layout, False, compression_key(2900000041, 0, 5,
+                                                        False))
+    _check_packed_dither(layout, False, prng.key(0))
+
+
+@pytest.mark.cuda
+def test_cuda_arena_uniform_rejects_what_the_kernel_does_not_take():
+    _need_cuda()
+    from repro_torch.core import prng
+
+    layout = _dither_layout("small", torch.float32)
+    table, seg = layout.leaf_table("cuda"), layout.row_segments("cuda")
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ops.arena_uniform(prng.key(0), table, seg, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous int64"):
+        ops.arena_uniform(prng.key(0), table.int(), seg, dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.arena_uniform(prng.key(0), table.cpu(), seg.cpu(),
+                          dtype=torch.float32, impl="kernel")
