@@ -11,6 +11,7 @@ from repro_torch.configs import (
     llava_next_34b,
     mamba2_130m,
     minicpm_2b,
+    nemotron3_nano_30b_a3b,
     qwen3_1p7b,
     whisper_small,
     zamba2_1p2b,
@@ -35,15 +36,22 @@ _REGISTRY: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in (
     llama4_scout_17b_a16e, gemma_2b, mamba2_130m, granite_moe_3b_a800m,
     whisper_small, fedlm_100m)}
 
+#: configurations of the port alone, resolved by ``get_config`` but kept
+#: out of ``registry()`` and ``list_archs()``, which mirror the reference's
+PORT_ONLY: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in (
+    nemotron3_nano_30b_a3b,)}
+
 
 def registry() -> dict[str, ArchConfig]:
     return dict(_REGISTRY)
 
 
 def get_config(name: str) -> ArchConfig:
+    if name in PORT_ONLY:
+        return PORT_ONLY[name]
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port has "
-                       f"{sorted(_REGISTRY)}")
+                       f"{sorted(_REGISTRY) + sorted(PORT_ONLY)}")
     return _REGISTRY[name]
 
 
@@ -52,5 +60,5 @@ def list_archs() -> list[str]:
 
 
 __all__ = ["ASSIGNED", "ArchConfig", "FedScenario", "INPUT_SHAPES",
-           "ShapeConfig", "get_config", "list_archs", "registry",
+           "PORT_ONLY", "ShapeConfig", "get_config", "list_archs", "registry",
            "supports_shape"]

@@ -37,28 +37,40 @@ class ArchConfig:
     attn_bias: bool = False
 
     # mlp
-    activation: str = "swiglu"       # swiglu | geglu | gelu
+    activation: str = "swiglu"       # swiglu | geglu | gelu | relu2
     mlp_bias: bool = False
 
     # norm / embeddings
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     tie_embeddings: bool = False
     embed_scale: bool = False        # gemma: multiply embeddings by sqrt(d)
+    norm_eps: float = 1e-6           # RMSNorm epsilon
 
     # moe
     n_experts: int = 0
     experts_per_token: int = 0
     moe_shared_expert: bool = False
     capacity_factor: float = 1.25
+    # nemotron_h's sigmoid router: its normalized top-k weights times
+    # ``moe_routed_scale``; experts 0 .. ``experts_held`` - 1 live on this
+    # card (0: all), each over every token (drop-free)
+    moe_routed_scale: float = 1.0
+    moe_shared_ff: int = 0           # width of a shared expert of its own
+    experts_held: int = 0
 
     # ssm (mamba2)
     ssm_state: int = 0
     ssm_headdim: int = 64
     ssm_expand: int = 2
     ssm_conv: int = 4
+    ssm_heads: int = 0               # 0: ssm_expand * d_model / ssm_headdim
+    ssm_groups: int = 1              # B/C groups; head j reads j // (H / G)
 
     # hybrid (zamba2): one SHARED attention(+MLP) block applied every k layers
     shared_attn_every: int = 0
+    # single-mixer stacks (nemotron_h): one letter a layer, M Mamba2,
+    # E MoE, * attention
+    layer_pattern: str = ""
 
     # modality frontends (stubs): precomputed embeddings prepended/consumed
     modality: str = "text"           # text | vision | audio
@@ -118,6 +130,18 @@ class ArchConfig:
             scan_layers=False,
             remat=False,
         )
+        # the port-only fields, untouched at their defaults
+        if self.layer_pattern:  # one layer of each kind, in pattern order
+            kinds = "".join(dict.fromkeys(self.layer_pattern))
+            changes.update(n_layers=len(kinds), layer_pattern=kinds)
+        if self.ssm_heads:
+            changes["ssm_heads"] = min(self.ssm_heads, 8)
+        if self.ssm_groups > 1:
+            changes["ssm_groups"] = 2
+        if self.moe_shared_ff:
+            changes["moe_shared_ff"] = min(self.moe_shared_ff, 512)
+        if self.experts_held:
+            changes["experts_held"] = max(1, changes["n_experts"] // 2)
         return dataclasses.replace(self, **changes)
 
     def with_dtype(self, dtype: str, param_dtype: str | None = None) -> "ArchConfig":

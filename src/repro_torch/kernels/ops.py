@@ -428,7 +428,12 @@ def ssd_intra(x, dt, a_cs, Bm, Cm, impl: str = "auto"):
     a_cs ``[B, Nc, Lc, H]``, Bm and Cm ``[B, Nc, Lc, N]``. Returns x's
     shape and dtype. The CUDA kernel takes float32 and bfloat16 and has no
     backward; the plain version also takes float64 and autograd. DTensors
-    run shard-local (batch- or head-sharded, or replicated) or raise."""
+    run shard-local (batch- or head-sharded, or replicated) or raise. One
+    B/C group: grouped ``[B, Nc, Lc, G, N]`` operands raise."""
+    if Bm.dim() != 4:
+        raise NotImplementedError(
+            f"ssd_intra takes one B/C group, not B of shape "
+            f"{tuple(Bm.shape)}")
     kernel = _use_kernel(impl, x)
     if _needs_grad(x, dt, a_cs, Bm, Cm) or not (kernel or is_dtensor(x)):
         # the plain version on plain tensors as torch ops, as above

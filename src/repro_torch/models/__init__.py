@@ -24,6 +24,10 @@ def build_model(cfg: ArchConfig):
         from repro_torch.models.encdec import EncDecLM
 
         return EncDecLM(cfg)
+    if cfg.family == "nemotron_h":
+        from repro_torch.models.nemotron_h import NemotronHLM
+
+        return NemotronHLM(cfg)
     raise ValueError(f"unknown family: {cfg.family}")
 
 

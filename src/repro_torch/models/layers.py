@@ -123,19 +123,24 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def relu2(x: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU, ``relu(x)²`` (nemotron_h's ``relu2``)."""
+    return torch.square(F.relu(x))
+
+
 def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype, *,
              activation: str, with_bias: bool = False, lead: tuple = (),
              device=None) -> dict:
     """Gated (``swiglu``, ``geglu``: ``gate``, ``up``, ``down``) or plain
-    GELU (``up``, ``down``) weights; ``with_bias`` adds zero ``up_b
-    [d_ff]`` and ``down_b [d]`` (the gated forms carry them unused, as in
-    the reference)."""
+    GELU or squared-ReLU (``up``, ``down``) weights; ``with_bias`` adds
+    zero ``up_b [d_ff]`` and ``down_b [d]`` (the gated forms carry them
+    unused, as in the reference)."""
     kw = dict(lead=lead, device=device)
     if activation in ("swiglu", "geglu"):
         p = {"gate": dense_init(gen, d, d_ff, dtype, **kw),
              "up": dense_init(gen, d, d_ff, dtype, **kw),
              "down": dense_init(gen, d_ff, d, dtype, **kw)}
-    elif activation == "gelu":  # plain gelu (whisper)
+    elif activation in ("gelu", "relu2"):  # plain (whisper, nemotron_h)
         p = {"up": dense_init(gen, d, d_ff, dtype, **kw),
              "down": dense_init(gen, d_ff, d, dtype, **kw)}
     else:
@@ -156,7 +161,8 @@ def apply_mlp(x: torch.Tensor, params: dict, *,
     h = x @ params["up"]
     if "up_b" in params:
         h = h + params["up_b"]
-    out = gelu_tanh(h) @ params["down"]
+    out = (relu2(h) if activation == "relu2" else gelu_tanh(h)) \
+        @ params["down"]
     if "down_b" in params:
         out = out + params["down_b"]
     return grad_in_layout(out)

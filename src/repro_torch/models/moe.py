@@ -35,6 +35,17 @@ data axes and sequence over ``model``, the expert weights are gathered
 for the layer (gather-at-use, as the reference's), and each rank runs its
 cell alone. Without a grid (and at decode, which keeps the plain
 dispatch) DTensor tokens are replicated before routing.
+
+The sigmoid router and the held share (``apply_moe_held``, the nemotron_h
+family; no reference counterpart): scores ``sigmoid(x W_r)`` over all E
+experts, the top k chosen by ``score + b_corr`` (a correction bias that
+only the choice reads, so no gradient moves it), their weights the chosen
+scores normalized over all k and times a routed scale. The card holds
+experts ``0 .. held - 1`` (one card's share of an expert-parallel layer)
+and computes only their part of the result, drop-free: each held expert
+runs over every token of the call, weighted by its routing weight, which
+is 0 where the token did not choose it. Static shapes, no capacity, no
+load-balance term; a shared expert of its own width is added after.
 """
 
 from __future__ import annotations
@@ -44,35 +55,42 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_mlp, dense_init, gelu_tanh, \
-    init_mlp
-from repro_torch.utils.sharding_ctx import (grad_in_layout, is_dtensor,
-                                            moe_shards, redistribute,
-                                            replicate)
+from repro_torch.models.layers import (apply_mlp, dense_init, gelu_tanh,
+                                       init_mlp, relu2)
+from repro_torch.utils.sharding_ctx import (batch_local, grad_in_layout,
+                                            is_dtensor, moe_shards,
+                                            redistribute, replicate)
 
 
 def init_moe(gen: torch.Generator, d: int, d_ff: int, n_experts: int, dtype,
              *, shared_expert: bool, activation: str, lead: tuple = (),
-             device=None) -> dict:
+             device=None, router_bias: bool = False, held: int = 0,
+             shared_ff: int = 0) -> dict:
     """Router ``[d, E]`` (scale 0.02) and stacked expert weights ``[E, d,
     d_ff]`` / ``[E, d_ff, d]`` (``gate`` for the gated activations), every
     expert starting from one draw, as the reference's do; ``shared`` is an
-    ordinary MLP."""
+    ordinary MLP of width ``shared_ff`` (``d_ff`` where 0). With
+    ``router_bias`` a zero correction bias ``[E]`` follows the router;
+    ``held`` > 0 keeps only the first ``held`` experts' weights."""
     kw = dict(lead=lead, device=device)
+    n_held = held or n_experts
 
     def expert(d_in, d_out):
         w = dense_init(gen, d_in, d_out, dtype, **kw)
         return w.unsqueeze(len(lead)).expand(
-            lead + (n_experts, d_in, d_out)).contiguous()
+            lead + (n_held, d_in, d_out)).contiguous()
 
     p = {"router": dense_init(gen, d, n_experts, dtype, scale=0.02, **kw)}
+    if router_bias:
+        p["router_bias"] = torch.zeros(lead + (n_experts,), dtype=dtype,
+                                       device=device)
     if activation in ("swiglu", "geglu"):
         p["gate"] = expert(d, d_ff)
     p["up"] = expert(d, d_ff)
     p["down"] = expert(d_ff, d)
     if shared_expert:
-        p["shared"] = init_mlp(gen, d, d_ff, dtype, activation=activation,
-                               **kw)
+        p["shared"] = init_mlp(gen, d, shared_ff or d_ff, dtype,
+                               activation=activation, **kw)
     return p
 
 
@@ -221,3 +239,43 @@ def apply_moe(params: dict, x: torch.Tensor, *, n_experts: int, k: int,
     if shared_expert and "shared" in params:
         out = out + apply_mlp(xt, params["shared"], activation=activation)
     return grad_in_layout(out.reshape(B, S, d)), aux
+
+
+# ---------------------------------------------- sigmoid router, held share
+def sigmoid_route(logits: torch.Tensor, bias: torch.Tensor, k: int, *,
+                  scale: float):
+    """``(weights [T, k], expert ids [T, k])`` of the sigmoid router over
+    ``logits [T, E]``: the top k by ``sigmoid + bias``, weighted by their
+    sigmoid scores over their sum + 1e-20, times ``scale``; in float32."""
+    scores = torch.sigmoid(logits.to(torch.float32))
+    ids = torch.topk(scores + bias.to(torch.float32), k, dim=-1).indices
+    w = torch.gather(scores, -1, ids)
+    return w / (w.sum(-1, keepdim=True) + 1e-20) * scale, ids
+
+
+def held_weights(w: torch.Tensor, ids: torch.Tensor,
+                 held: int) -> torch.Tensor:
+    """``[T, held]``: each held expert's routing weight for each token, 0
+    where the token did not choose it."""
+    chose = ids[..., None] == torch.arange(held, device=ids.device)
+    return torch.sum(torch.where(chose, w[..., None], 0.0), dim=1)
+
+
+def apply_moe_held(params: dict, x: torch.Tensor, *, k: int, held: int,
+                   routed_scale: float, activation: str) -> torch.Tensor:
+    """x: [B, S, d] -> [B, S, d]: the held experts' part of the routed
+    result plus the shared expert (see the module docstring); ungated
+    experts (``relu2``, ``gelu``)."""
+    if "gate" in params:
+        raise NotImplementedError("the held share runs ungated experts")
+    B, S, d = x.shape
+    xt = batch_local(x).reshape(B * S, d)
+    w, ids = sigmoid_route(xt @ params["router"], params["router_bias"], k,
+                           scale=routed_scale)
+    wh = held_weights(w, ids, held).to(xt.dtype)              # [T, held]
+    act = relu2 if activation == "relu2" else gelu_tanh
+    h = act(torch.einsum("td,edf->tef", xt, params["up"])) * wh[..., None]
+    out = torch.einsum("tef,efd->td", h, params["down"])
+    if "shared" in params:
+        out = out + apply_mlp(xt, params["shared"], activation=activation)
+    return grad_in_layout(out.reshape(B, S, d))

@@ -8,7 +8,8 @@ pass (shape and finiteness, loss finite), one FedCET round (tau 2, 2
 heterogeneous clients) on the model tree, and prefill of all but the last
 token plus one decode step against ``forward``'s last two positions
 within 2e-3 (rtol = atol, the reference's bound). Then the two config
-tests, and every config equal to the reference's field for field.
+tests, and every config equal to the reference's field for field, the
+port's own fields (nemotron_h's) at their defaults.
 
 Against the reference, on its parameters (``models/convert.py:
 params_from_numpy``, after 0.02 N(0, 1) noise on every leaf so the norms
@@ -31,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ASSIGNED, get_config, list_archs
+from repro_torch.configs import ASSIGNED, ArchConfig, get_config, list_archs
 from repro_torch.core import FedCET
 from repro_torch.kernels import library as L
 from repro_torch.launch import input_specs, serve
@@ -173,10 +174,18 @@ def test_full_configs_match_assignment():
     assert get_config("gemma-2b").head_dim == 256
     jreg = jregistry()
     assert sorted(jreg) == ARCHS
+    # the port's ArchConfig is the reference's plus fields of its own
+    # (nemotron_h's), which every mirrored config leaves at their defaults
+    jfields = [f.name for f in dataclasses.fields(type(jreg[ARCHS[0]]))]
+    port_only = {f.name: f.default for f in dataclasses.fields(ArchConfig)
+                 if f.name not in jfields}
+    assert port_only
     for name in ARCHS:
         for pick in (lambda c: c, lambda c: c.reduced()):
-            assert (dataclasses.asdict(pick(get_config(name)))
+            got = dataclasses.asdict(pick(get_config(name)))
+            assert ({k: got[k] for k in jfields}
                     == dataclasses.asdict(pick(jreg[name]))), name
+            assert {k: got[k] for k in port_only} == port_only, name
 
 
 # --------------------------------------------------------- against the JAX

@@ -250,5 +250,9 @@ def test_cli_and_config():
     want = dataclasses.asdict(jget("mamba2-130m"))
     got = dataclasses.asdict(get_config("mamba2-130m"))
     assert {k: got[k] for k in want} == want
+    # the port's own fields (nemotron_h's) stay at their defaults
+    assert {k: v for k, v in got.items() if k not in want} == {
+        f.name: f.default for f in dataclasses.fields(type(get_config(
+            "mamba2-130m"))) if f.name not in want}
     assert (got["n_layers"], got["d_model"], got["vocab_size"],
             got["ssm_state"], got["ssm_headdim"]) == (24, 768, 50280, 128, 64)
